@@ -7,7 +7,7 @@ several rotation angles, then alternate per-angle ptychography, a
 laminography solve that ties the projections to one volume, and the dual
 update. Prints the per-iteration ptycho cost and the final volume error.
 
-Run: JAX_PLATFORMS=cpu python examples/admm.py  (or on a TPU chip as-is)
+Run: python examples/admm.py  (JAX_PLATFORMS=cpu to stay on the CPU)
 """
 
 import numpy as np

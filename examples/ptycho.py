@@ -4,7 +4,7 @@ Runnable equivalent of the reference's `docs/source/examples/ptycho.ipynb`:
 load the bundled measured dataset, add Hermite probe modes, reconstruct
 with rPIE then refine with LSQML (+OPR and position correction), and plot.
 
-Run: JAX_PLATFORMS=cpu python examples/ptycho.py  (or on a TPU chip as-is)
+Run: python examples/ptycho.py  (JAX_PLATFORMS=cpu to stay on the CPU)
 """
 
 import bz2

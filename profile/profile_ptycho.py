@@ -23,7 +23,7 @@ def main():
     import tike_tpu.ptycho as tp
 
     n_patterns = int(sys.argv[1]) if len(sys.argv) > 1 else 2000
-    trace_dir = sys.argv[2] if len(sys.argv) > 2 else "/tmp/tike_tpu_trace"
+    trace_dir = sys.argv[2] if len(sys.argv) > 2 else "build/trace"
 
     rng = np.random.default_rng(0)
     P = det = 128

@@ -5,7 +5,7 @@ multi-process branches — the DP layout (`_enter_multi_host` with
 `make_global_batch_data`) and the striped object decomposition — under a
 real 2-process `jax.distributed` runtime, mirroring the reference's
 ``mpiexec -n 2 python -m pytest`` CI job
-(`/root/reference/.github/workflows/unit-tests.yml:143`).
+(`upstream/.github/workflows/unit-tests.yml:143`).
 """
 
 import os

@@ -2,7 +2,7 @@
 """The 2-process consistency suite: the mpiexec-style CI job.
 
 The reference runs its entire pytest suite under ``mpiexec -n 2``
-(`/root/reference/.github/workflows/unit-tests.yml:143`). Here the
+(`upstream/.github/workflows/unit-tests.yml:143`). Here the
 equivalent check launches two real ``jax.distributed`` CPU processes (2
 virtual devices each) and runs the reconstruct-consistency matrix through
 the PRODUCTION multi-process branches — the DP layout assembled by

@@ -1,6 +1,6 @@
 """Compare image-gradient implementations (dev harness).
 
-TPU-native analog of `/root/reference/tests/compare_gradients.py`: the
+JAX analog of `upstream/tests/compare_gradients.py`: the
 reference compares its FFT phase-ramp image gradient against CuPy's sobel /
 gradient / gaussian-derivative filters and saves side-by-side plots. Here the
 same four formulations are expressed in jnp (separable convs instead of

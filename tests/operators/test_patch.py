@@ -4,8 +4,10 @@ Mirrors the reference's `tests/operators/test_patch.py` strategy: adjoint
 property plus a numpy oracle for the bilinear interpolation.
 """
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
 from tike_tpu.ops import patch_fwd, patch_adj, patch_fwd_padded
 from .util import random_complex, check_adjoint
@@ -260,6 +262,30 @@ def test_out_of_bounds_semantics_pinned():
     assert np.isfinite(out).all()
 
 
+def test_far_out_of_range_windows_read_zeros():
+    """patch_fwd clamps each tile's band and column index before
+    flattening them, so windows far past the right or bottom edge read the
+    zero padding instead of aliasing into the next tile band (right edge)
+    or off the end of the tile array (bottom edge, which read NaN)."""
+    rng = np.random.default_rng(5)
+    h, w, p = 48, 56, 12
+    images = random_complex(rng, h, w)
+    positions = np.array(
+        [
+            [3.0, 376.5],    # spans the last tile column into the overflow
+            [70.25, 3.0],    # bands past the bottom of the padded image
+            [130.0, 500.0],  # both
+        ],
+        dtype=np.float32,
+    )
+    got = np.asarray(
+        patch_fwd(jnp.asarray(images), jnp.asarray(positions), p)
+    )
+    np.testing.assert_array_equal(
+        got, _zero_weight_fwd_oracle(images, positions, p)
+    )
+
+
 def test_position_update_clamps_to_valid_window():
     """Drifting position updates clamp to check_allowed_positions's valid
     region in the solver paths (VERDICT r3 item 7)."""
@@ -286,3 +312,97 @@ def test_position_update_clamps_to_valid_window():
     check_allowed_positions(
         np.asarray(new_scan), np.zeros((1, h, w)), (1, 1, 1, p, p)
     )
+
+
+def _dot_precisions(fn, *args):
+    """precision of every dot_general in fn's jaxpr, sub-jaxprs included."""
+    from jax.extend import core as jcore
+
+    found = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append(eqn.params["precision"])
+            for value in eqn.params.values():
+                for sub in value if isinstance(value, (list, tuple)) else [
+                    value
+                ]:
+                    if isinstance(sub, jcore.ClosedJaxpr):
+                        walk(sub.jaxpr)
+                    elif isinstance(sub, jcore.Jaxpr):
+                        walk(sub)
+
+    walk(jax.make_jaxpr(fn)(*args).jaxpr)
+    return found
+
+
+def _patch_path_cases():
+    from tike_tpu.ops.ptycho import PtychoConfig
+    from tike_tpu.ptycho.solvers import _preconditioner as pre
+    from tike_tpu.ptycho.solvers.lstsq import _lstsq_batch_math
+    from tike_tpu.ptycho.solvers.rpie import _batch_gradients_math
+
+    from ..ptycho.test_numpy_oracle import make_inputs
+
+    psi, probe, scan, data, precond = make_inputs(B=5, P=16, DET=32, M=2)
+    cfg = PtychoConfig(probe_shape=16, detector_shape=32, nz=64, n=64)
+    psi, probe = jnp.asarray(psi[None]), jnp.asarray(probe[None, None])
+    idx, mask = jnp.arange(5), jnp.ones(5)
+    pixels = jnp.ones((32, 32), bool)
+    common = dict(noise_model="gaussian", steplength_usemodes="all_modes")
+    patches = jnp.asarray(
+        random_complex(np.random.default_rng(0), 5, 16, 16)
+    )
+    return {
+        "patch_fwd": (lambda s: patch_fwd(psi[0], s, 16), scan),
+        "patch_adj cell grid": (
+            lambda s: patch_adj(patches, s, (64, 64)), scan
+        ),
+        "patch_adj scan": (
+            lambda s: patch_adj(patches[:4], s[:4], (256, 256)), scan
+        ),
+        "rpie batch": (
+            lambda s: _batch_gradients_math(
+                cfg, data, s, idx, mask, psi, probe, None, None, pixels,
+                0.5, 0.5, 1.0, recover_probe=True, **common,
+            ),
+            scan,
+        ),
+        "lstsq batch": (
+            lambda s: _lstsq_batch_math(
+                cfg, data, s, idx, mask, psi, probe, None, None, pixels,
+                jnp.asarray(precond[None]), 0.5, 0.5, 1.0, num_batch=3.0,
+                recover_psi=True, recover_probe=True,
+                recover_positions=True, **common,
+            ),
+            scan,
+        ),
+        "psi preconditioner": (
+            lambda s: pre._psi_precond_math(cfg, psi, s, probe), scan
+        ),
+        "probe preconditioner": (
+            lambda s: pre._probe_precond_math(cfg, psi, s), scan
+        ),
+    }
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        "patch_fwd",
+        "patch_adj cell grid",
+        "patch_adj scan",
+        "rpie batch",
+        "lstsq batch",
+        "psi preconditioner",
+        "probe preconditioner",
+    ],
+)
+def test_patch_path_matmuls_state_their_precision(case):
+    """No matrix product on the patch path is left at an implicit DEFAULT,
+    which a GPU may run in TF32."""
+    fn, scan = _patch_path_cases()[case]
+    precisions = _dot_precisions(fn, jnp.asarray(scan))
+    assert precisions, "no matrix product traced"
+    assert all(p is not None for p in precisions), precisions

@@ -1,7 +1,7 @@
 """Composite ptychography operator tests.
 
 Mirrors the reference's 3-way adjoint test
-(`/root/reference/tests/operators/test_ptycho.py:58-75`): adjointness of the
+(`upstream/tests/operators/test_ptycho.py:58-75`): adjointness of the
 forward model with respect to both psi (probe fixed) and probe (psi fixed).
 """
 

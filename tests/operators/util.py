@@ -1,7 +1,7 @@
 """Adjoint/scaling property harness for linear operator pairs.
 
 Re-implements the reference's central operator test pattern
-(`/root/reference/tests/operators/util.py:23-83`): for a linear operator pair
+(`upstream/tests/operators/util.py:23-83`): for a linear operator pair
 (fwd, adj), check <F m, d> == <m, F* d> and that F approximately preserves
 norms (for unitary-normalized operators).
 """

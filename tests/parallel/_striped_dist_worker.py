@@ -3,7 +3,7 @@
 Run as: python _striped_dist_worker.py <rank> <port> <out_prefix>
 
 The reference's object-domain model parallelism spans MPI ranks
-(`/root/reference/src/tike/operators/cupy/bucket.py:267-274` splits the
+(`upstream/src/tike/operators/cupy/bucket.py:267-274` splits the
 voxel grid by rank; scan stripes span nodes via `mpi.py:61-85`). Here: two
 jax.distributed CPU processes (2 virtual devices each) run the striped
 object decomposition over a 4-device mesh — each process loads only its

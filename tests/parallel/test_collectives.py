@@ -1,9 +1,9 @@
 """Direct placement/value spec tests for the collective primitives.
 
 Port of the intent of the reference's per-collective ThreadPool tests
-(`/root/reference/tests/communicators/test_pool.py:8-173`): where the
+(`upstream/tests/communicators/test_pool.py:8-173`): where the
 reference asserts explicit expected placement for bcast/gather/scatter/
-swap_edges, these tests pin the placement and value rules of the TPU-native
+swap_edges, these tests pin the placement and value rules of the mesh
 primitives in `tike_tpu.parallel` — so any change to a placement rule fails
 a test here, not just a composed end-to-end equivalence run.
 """
@@ -79,8 +79,7 @@ def test_put_replicated_global_every_device_full_copy():
 
 
 def test_put_process_local_complex_pair_roundtrip():
-    """Complex host data must survive placement + fetch_global exactly
-    (the Pair-aware path used on relay backends)."""
+    """Complex host data must survive placement + fetch_global exactly."""
     mesh = make_mesh()
     rows = 2 * mesh.size
     rng = np.random.default_rng(0)

@@ -1,7 +1,7 @@
 """The multi-host (DCN) tier: 2-process reconstruction equivalence.
 
 The reference tests its MPI axis by running the whole suite under
-``mpiexec -n 2`` (`/root/reference/.github/workflows/unit-tests.yml:143`)
+``mpiexec -n 2`` (`upstream/.github/workflows/unit-tests.yml:143`)
 with per-rank data striping (`mpi.py:61-92`). Here: two ``jax.distributed``
 CPU processes (2 virtual devices each) reconstruct from per-process data
 stripes; both ranks must produce identical results, and those must match a

@@ -1,7 +1,7 @@
 """Laminography model parallelism on a multi-device mesh.
 
 Covers the reference's two lamino parallel axes
-(`/root/reference/src/tike/lamino/solvers/bucket.py:34-54,111-114`,
+(`upstream/src/tike/lamino/solvers/bucket.py:34-54,111-114`,
 `lamino/lamino.py:130-137`): the Bucket volume split (obj_split — each
 device owns an x-slab of voxels, projections psum-reduced) and the USFFT
 path's theta-axis data parallelism. Both must reproduce the single-device
@@ -108,7 +108,7 @@ def test_bucket_2d_mesh_ops_match_unsharded():
     """2x4 (data x volume) mesh ops == flat single-device programs.
 
     The reference's obj_split x data-group grid
-    (`/root/reference/src/tike/lamino/solvers/bucket.py:34-54,111-114`):
+    (`upstream/src/tike/lamino/solvers/bucket.py:34-54,111-114`):
     partial projections Allreduced within volume groups, gradients reduced
     across data groups.
     """

@@ -1,7 +1,7 @@
 """Pytest wrapper for the 2-process consistency suite.
 
 Mirrors the reference CI job that re-runs the test suite under
-``mpiexec -n 2`` (`/root/reference/.github/workflows/unit-tests.yml:143`):
+``mpiexec -n 2`` (`upstream/.github/workflows/unit-tests.yml:143`):
 the full reconstruct-consistency matrix (DP and striped, rPIE and LSQML,
 OPR and position correction) executes under two real jax.distributed
 processes through the production `_enter_multi_host` /

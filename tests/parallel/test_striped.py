@@ -1,6 +1,6 @@
 """Row-striped (spatial-parallel) reconstruction on the virtual 8-device mesh.
 
-The TPU analog of the reference's multi-GPU psi decomposition test path:
+The JAX analog of the reference's multi-GPU psi decomposition test path:
 stripes + halo cross-fade + stitching must reconstruct as well as the
 replicated path on the same synthetic data.
 """
@@ -825,6 +825,28 @@ def test_striped_classical_momentum_runs(stream):
         result = ctx.get_result()
     costs = [float(np.mean(c)) for c in result.algorithm_options.costs]
     assert np.all(np.isfinite(costs)) and costs[-1] < costs[0], costs
+
+
+def test_second_striped_iterate_reuses_the_compiled_epoch():
+    """Each iterate() feeds the epoch program the states it returned last
+    time; their placement must match the first call's, or every second
+    iterate() retraces and recompiles the whole epoch."""
+    psi_true, probe, scan, data = _setup(n=128)
+    params = tp.PtychoParameters(
+        probe=probe.copy(),
+        psi=np.full_like(psi_true, 0.5),
+        scan=scan.copy(),
+        algorithm_options=tp.RpieOptions(num_batch=2, num_iter=1),
+        object_options=tp.ObjectOptions(),
+        probe_options=tp.ProbeOptions(),
+    )
+    with tp.Reconstruction(
+        data, params, mesh=make_mesh(4), object_sharding="striped",
+        random_seed=0,
+    ) as ctx:
+        for _ in range(3):
+            ctx.iterate(1)
+        assert ctx._striped._programs[1]._cache_size() == 1
 
 
 def test_striped_streamed_chunking_invariant(monkeypatch):

@@ -1,6 +1,6 @@
 """Shared ptychography test fixtures.
 
-Mirrors `/root/reference/tests/ptycho/templates.py`: load the bundled
+Mirrors `upstream/tests/ptycho/templates.py`: load the bundled
 siemens-star dataset, add 5 Cartesian-Hermite probe modes, and run
 reconstructions twice to prove warm-restart consistency.
 """

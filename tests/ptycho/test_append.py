@@ -1,7 +1,7 @@
 """Online reconstruction: Reconstruction.append_new_data.
 
 The reference defines this API but ships it disabled
-(`/root/reference/src/tike/ptycho/ptycho.py:646-721`); tike_tpu implements
+(`upstream/src/tike/ptycho/ptycho.py:646-721`); tike_tpu implements
 it. These tests check the documented semantics: data/scan grow, mini-batches
 re-cluster, eigen weights pad with their means, position state extends, and
 iteration resumes from the carried-over solver state.

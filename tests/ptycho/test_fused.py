@@ -4,7 +4,7 @@ The fused path (`tike_tpu/ptycho/solvers/fused.py`) folds whole epochs into
 one XLA program; these tests pin it to the per-epoch reference path
 bit-for-bit (same seed => same batches) for both solvers, mirroring how the
 reference validates solver variants against each other on the siemens-star
-dataset (`/root/reference/tests/test_ptycho.py`). Variants cover the probe
+dataset (`upstream/tests/test_ptycho.py`). Variants cover the probe
 update schedule (update_period > 1) and in-program position correction.
 """
 

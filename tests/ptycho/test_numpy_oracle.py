@@ -6,20 +6,16 @@ padding convention, gradient sign, preconditioner formula, and the LSQML 2x2
 joint step-size solve — to an independent straight-line numpy transcription
 of the equations (Maiden 2017 rPIE eq. 6; Odstrcil 2018 eqs. 24-25 as
 implemented by the reference at
-`/root/reference/src/tike/ptycho/solvers/rpie.py:315-567` and
+`upstream/src/tike/ptycho/solvers/rpie.py:315-567` and
 `lstsq.py:367-718`). If any piece of the jitted batch programs diverges,
 these fail with a localized array mismatch rather than a slow drift in an
 integration test.
 """
 
-import numpy as np
-import pytest
-
-import tike_tpu.ptycho  # noqa: F401  (registers pair-mode etc.)
-from tike_tpu.ops.ptycho import PtychoConfig
-from tike_tpu.utils.pairs import PAIR_MODE, Pair
-
 import jax.numpy as jnp
+import numpy as np
+
+from tike_tpu.ops.ptycho import PtychoConfig
 
 
 # --- numpy reference implementations -------------------------------------
@@ -80,7 +76,8 @@ def np_gaussian_grad(data, farplane, intensity):
     return farplane * scale[:, None]
 
 
-def _setup(seed=42, B=5, P=16, DET=32, M=2, H=64):
+def make_inputs(seed=42, B=5, P=16, DET=32, M=2, H=64):
+    """Random (psi, probe, scan, data, precond) for one mini-batch step."""
     rng = np.random.default_rng(seed)
     psi = (
         rng.standard_normal((H, H)) + 1j * rng.standard_normal((H, H))
@@ -96,39 +93,29 @@ def _setup(seed=42, B=5, P=16, DET=32, M=2, H=64):
     return psi, probe, scan, data, precond
 
 
-def _unwrap(x):
-    if isinstance(x, Pair):
-        x = x.complex if jnp.issubdtype(x.data.dtype, jnp.floating) else x
-    return np.asarray(x)
-
-
-def _wrap_c(x):
-    x = jnp.asarray(x)
-    return Pair.from_complex(x) if PAIR_MODE else x
-
-
-def test_rpie_batch_gradients_match_numpy_oracle():
-    """One rpie mini-batch (single-slice, gaussian, no eigen) vs numpy."""
-    from tike_tpu.ptycho.solvers.rpie import _batch_gradients
-
-    B, P, DET, M, H = 5, 16, 32, 2, 64
-    psi, probe, scan, data, _ = _setup(B=B, P=P, DET=DET, M=M, H=H)
-
-    # --- numpy oracle ---
+def np_rpie_gradients(psi, probe, scan, data):
+    """numpy oracle of one rPIE mini-batch: (costs, psi_num, probe_num)."""
+    P, DET, M = probe.shape[-1], data.shape[-1], probe.shape[0]
     patches = np_patch_fwd(psi, scan, P)  # (B, P, P)
     nearplane = patches[:, None] * probe[None]  # (B, M, P, P)
     farplane = np_fft2o(np_pad_det(nearplane, P, DET))
     intensity = np.sum(np.abs(farplane) ** 2, axis=1)  # (B, DET, DET)
-    costs_np = np.mean(
+    costs = np.mean(
         (np.sqrt(intensity) - np.sqrt(data)) ** 2, axis=(-2, -1)
     )
     update = -np_gaussian_grad(data, farplane, intensity)
     diff = np_crop_det(np_ifft2o(update), P, DET)  # (B, M, P, P)
     grad_psi = np.sum(np.conj(probe)[None] * diff, axis=1) / M
-    psi_num_np = np_patch_adj(grad_psi, scan, (H, H))
-    probe_num_np = np.sum(np.conj(patches)[:, None] * diff, axis=0)
+    psi_num = np_patch_adj(grad_psi, scan, psi.shape)
+    probe_num = np.sum(np.conj(patches)[:, None] * diff, axis=0)
+    return costs, psi_num, probe_num
 
-    # --- tike_tpu ---
+
+def run_rpie_gradients(psi, probe, scan, data):
+    """tike_tpu's jitted rPIE mini-batch, same outputs as the oracle."""
+    from tike_tpu.ptycho.solvers.rpie import _batch_gradients
+
+    B, DET, P, H = len(scan), data.shape[-1], probe.shape[-1], psi.shape[-1]
     cfg = PtychoConfig(probe_shape=P, detector_shape=DET, nz=H, n=H)
     costs, psi_num, probe_num, eigen_delta = _batch_gradients(
         cfg,
@@ -136,8 +123,8 @@ def test_rpie_batch_gradients_match_numpy_oracle():
         jnp.asarray(scan),
         jnp.arange(B, dtype=jnp.int32),
         jnp.ones(B, jnp.float32),
-        _wrap_c(psi[None]),  # (D=1, H, W)
-        _wrap_c(probe[None, None]),  # (1, 1, M, P, P)
+        jnp.asarray(psi[None]),  # (D=1, H, W)
+        jnp.asarray(probe[None, None]),  # (1, 1, M, P, P)
         None,
         None,
         jnp.ones((DET, DET), bool),
@@ -149,12 +136,24 @@ def test_rpie_batch_gradients_match_numpy_oracle():
         recover_probe=True,
     )
     assert eigen_delta is None
-    np.testing.assert_allclose(np.asarray(costs), costs_np, rtol=2e-5)
-    np.testing.assert_allclose(
-        _unwrap(psi_num)[0], psi_num_np, rtol=1e-4, atol=1e-4
+    return (
+        np.asarray(costs),
+        np.asarray(psi_num)[0],
+        np.asarray(probe_num)[0, 0, 0],
     )
+
+
+def test_rpie_batch_gradients_match_numpy_oracle():
+    """One rpie mini-batch (single-slice, gaussian, no eigen) vs numpy."""
+    psi, probe, scan, data, _ = make_inputs(B=5, P=16, DET=32, M=2, H=64)
+    costs_np, psi_num_np, probe_num_np = np_rpie_gradients(
+        psi, probe, scan, data
+    )
+    costs, psi_num, probe_num = run_rpie_gradients(psi, probe, scan, data)
+    np.testing.assert_allclose(costs, costs_np, rtol=2e-5)
+    np.testing.assert_allclose(psi_num, psi_num_np, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(
-        _unwrap(probe_num)[0, 0, 0], probe_num_np, rtol=1e-4, atol=1e-4
+        probe_num, probe_num_np, rtol=1e-4, atol=1e-4
     )
 
 
@@ -185,41 +184,35 @@ def test_rpie_update_matches_numpy_oracle():
     probe_exp = probe + probe_num[0] / ((1 - alpha) * pp + alpha * pp.max())
 
     psi2, probe2 = _plain_update_program(
-        _wrap_c(psi),
-        _wrap_c(probe),
-        _wrap_c(psi_num),
-        _wrap_c(probe_num),
-        _wrap_c(psi_pre),
-        _wrap_c(probe_pre),
+        jnp.asarray(psi),
+        jnp.asarray(probe),
+        jnp.asarray(psi_num),
+        jnp.asarray(probe_num),
+        jnp.asarray(psi_pre),
+        jnp.asarray(probe_pre),
         jnp.float32(alpha),
         recover_psi=True,
         recover_probe=True,
     )
-    np.testing.assert_allclose(_unwrap(psi2), psi_exp, rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(psi2), psi_exp, rtol=2e-5, atol=1e-5)
     np.testing.assert_allclose(
-        _unwrap(probe2), probe_exp, rtol=2e-5, atol=1e-5
+        np.asarray(probe2), probe_exp, rtol=2e-5, atol=1e-5
     )
 
 
-def test_lstsq_batch_matches_numpy_oracle():
-    """One LSQML mini-batch (gaussian, psi+probe, no eigen) vs numpy.
+def np_lstsq_batch(psi, probe, scan, data, precond, num_batch):
+    """numpy oracle of one LSQML mini-batch (gaussian, psi+probe, no eigen).
 
     Covers the object/probe gradients, illumination preconditioning, and the
     joint 2x2 optimal-step solve (`lstsq.py:619-718`).
     """
-    from tike_tpu.ptycho.solvers.lstsq import _lstsq_batch
-
-    B, P, DET, M, H = 5, 16, 32, 2, 64
-    psi, probe, scan, data, precond = _setup(B=B, P=P, DET=DET, M=M, H=H)
-    num_batch = 3.0
+    P, DET = probe.shape[-1], data.shape[-1]
     eps = 1e-9 / (P * P)
-
-    # --- numpy oracle ---
     patches = np_patch_fwd(psi, scan, P)
     nearplane = patches[:, None, None] * probe[None, None]  # (B,1,M,P,P)
     farplane = np_fft2o(np_pad_det(nearplane, P, DET))
     intensity = np.sum(np.abs(farplane) ** 2, axis=(1, 2))
-    costs_np = np.mean(
+    costs = np.mean(
         (np.sqrt(intensity) - np.sqrt(data)) ** 2, axis=(-2, -1)
     )
     scale = 1 - np.sqrt(data) / (np.sqrt(intensity) + 1e-9)
@@ -228,7 +221,7 @@ def test_lstsq_batch_matches_numpy_oracle():
     )  # (B,1,M,P,P)
 
     obj_upd = np_patch_adj(
-        np.sum(np.conj(probe)[None] * chi[:, 0], axis=1), scan, (H, H)
+        np.sum(np.conj(probe)[None] * chi[:, 0], axis=1), scan, psi.shape
     )[None]
     m_probe_update = (
         np.sum(np.conj(patches)[:, None, None] * chi, axis=0, keepdims=True)
@@ -255,12 +248,23 @@ def test_lstsq_batch_matches_numpy_oracle():
     det = np.where(np.abs(det) == 0, 1e-32, det)
     x1 = -np.conj(A2 * b2 - A4 * b1) / det
     x2 = np.conj(A1 * b2 - A3 * b1) / det
-    beta_object_np = np.mean(0.9 * np.maximum(0, x1.real))
-    beta_probe_np = np.mean(
-        0.9 * np.maximum(0, x2.real)[..., None, None], axis=0
-    )
+    return {
+        "costs": costs,
+        "object_upd_sum": obj_upd,
+        "m_probe_update": m_probe_update,
+        "object_update_precond": obj_upd_precond,
+        "beta_object": np.mean(0.9 * np.maximum(0, x1.real)),
+        "beta_probe": np.mean(
+            0.9 * np.maximum(0, x2.real)[..., None, None], axis=0
+        ),
+    }
 
-    # --- tike_tpu ---
+
+def run_lstsq_batch(psi, probe, scan, data, precond, num_batch):
+    """tike_tpu's jitted LSQML mini-batch: the oracle's keys, as numpy."""
+    from tike_tpu.ptycho.solvers.lstsq import _lstsq_batch
+
+    B, DET, P, H = len(scan), data.shape[-1], probe.shape[-1], psi.shape[-1]
     cfg = PtychoConfig(probe_shape=P, detector_shape=DET, nz=H, n=H)
     out = _lstsq_batch(
         cfg,
@@ -268,12 +272,12 @@ def test_lstsq_batch_matches_numpy_oracle():
         jnp.asarray(scan),
         jnp.arange(B, dtype=jnp.int32),
         jnp.ones(B, jnp.float32),
-        _wrap_c(psi[None]),
-        _wrap_c(probe[None, None]),
+        jnp.asarray(psi[None]),
+        jnp.asarray(probe[None, None]),
         None,
         None,
         jnp.ones((DET, DET), bool),
-        _wrap_c(precond[None]),
+        jnp.asarray(precond[None]),
         0.5,
         0.5,
         1.0,
@@ -284,27 +288,42 @@ def test_lstsq_batch_matches_numpy_oracle():
         recover_probe=True,
         recover_positions=False,
     )
-    np.testing.assert_allclose(np.asarray(out["costs"]), costs_np, rtol=2e-5)
+    return {
+        k: np.asarray(out[k])
+        for k in (
+            "costs",
+            "object_upd_sum",
+            "m_probe_update",
+            "object_update_precond",
+            "beta_object",
+            "beta_probe",
+        )
+    }
+
+
+def test_lstsq_batch_matches_numpy_oracle():
+    """One LSQML mini-batch (gaussian, psi+probe, no eigen) vs numpy."""
+    psi, probe, scan, data, precond = make_inputs(
+        B=5, P=16, DET=32, M=2, H=64
+    )
+    want = np_lstsq_batch(psi, probe, scan, data, precond, num_batch=3.0)
+    got = run_lstsq_batch(psi, probe, scan, data, precond, num_batch=3.0)
+    np.testing.assert_allclose(got["costs"], want["costs"], rtol=2e-5)
     np.testing.assert_allclose(
-        _unwrap(out["object_upd_sum"]), obj_upd, rtol=1e-4, atol=1e-4
+        got["object_upd_sum"], want["object_upd_sum"], rtol=1e-4, atol=1e-4
     )
     np.testing.assert_allclose(
-        _unwrap(out["m_probe_update"]),
-        m_probe_update,
-        rtol=1e-4,
-        atol=1e-5,
+        got["m_probe_update"], want["m_probe_update"], rtol=1e-4, atol=1e-5
     )
     np.testing.assert_allclose(
-        _unwrap(out["object_update_precond"]),
-        obj_upd_precond,
+        got["object_update_precond"],
+        want["object_update_precond"],
         rtol=1e-4,
         atol=1e-4,
     )
     np.testing.assert_allclose(
-        _unwrap(out["beta_object"]).ravel(), [beta_object_np], rtol=1e-4
+        got["beta_object"].ravel(), [want["beta_object"]], rtol=1e-4
     )
     np.testing.assert_allclose(
-        _unwrap(out["beta_probe"]).ravel(),
-        beta_probe_np.ravel(),
-        rtol=1e-4,
+        got["beta_probe"].ravel(), want["beta_probe"].ravel(), rtol=1e-4
     )

@@ -1,7 +1,7 @@
 """FFT-formulation preconditioners match the gather formulation exactly.
 
 The FFT forms re-express the same interp-then-square math
-(`/root/reference/src/tike/ptycho/solvers/_preconditioner.py:48-167`) as
+(`upstream/src/tike/ptycho/solvers/_preconditioner.py:48-167`) as
 point densities convolved/correlated with full-object fields, so they must
 agree with the per-patch gather versions to float32 rounding.
 """

@@ -1,6 +1,6 @@
 """Integration tests for ptychography reconstruction.
 
-Mirrors the reference strategy (`/root/reference/tests/ptycho/test_ptycho.py`):
+Mirrors the reference strategy (`upstream/tests/ptycho/test_ptycho.py`):
 consistency (reconstruct twice, cost decreasing and finite) across solver ×
 noise model × option combinations, on the bundled siemens-star dataset.
 Epoch counts are kept small for CPU CI speed.
@@ -24,7 +24,7 @@ class TestPtychoRecon(ReconstructTwice, unittest.TestCase):
     Runs on the 160-position spatial subset of the measured siemens-star
     scan (same data as the reference's full-suite fixture, ~10x faster),
     covering the reference's parametrized matrix at
-    `/root/reference/tests/ptycho/test_ptycho.py:270-670`.
+    `upstream/tests/ptycho/test_ptycho.py:270-670`.
     """
 
     def setUp(self):

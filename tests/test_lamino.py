@@ -151,7 +151,7 @@ class TestBucket:
 class TestLaminoRadonEquivalence:
     """Fourier (USFFT) lamino == Bucket == direct axis sums (Radon).
 
-    Mirrors `/root/reference/tests/test_lamino.py:258-329`, but actually
+    Mirrors `upstream/tests/test_lamino.py:258-329`, but actually
     asserts (the reference swallows its AssertionErrors). A tiny integer
     volume padded with zeros is projected at the three orientations where
     the projection equals a direct sum along one axis.

@@ -316,7 +316,7 @@ class TestInstrumentLoaders:
 
 class TestProbeMatOracles:
     """Bit-level parity against the reference's MATLAB-derived fixtures
-    (`/root/reference/tests/ptycho/test_probe.py:138-178`; fixtures vendored
+    (`upstream/tests/ptycho/test_probe.py:138-178`; fixtures vendored
     into tests/data like the reference ships them in-repo)."""
 
     def _load(self, name):

@@ -2,7 +2,7 @@
 
 The reference pins its ``simulate`` forward models to pickled datasets so that
 any change in FFT norms, padding conventions, or interpolation silently breaks
-these comparisons (`/root/reference/tests/ptycho/test_ptycho.py:190-204`,
+these comparisons (`upstream/tests/ptycho/test_ptycho.py:190-204`,
 `tests/test_lamino.py:130-140`, `tests/test_align.py:68-79`). These tests run
 tike_tpu's forward models against the *same stored data* at the same
 tolerances, proving the math matches the CuPy reference — not merely that our
@@ -22,33 +22,21 @@ import pickle
 import numpy as np
 import pytest
 
-# Golden datasets are vendored in-repo (tests/data); the reference mount is
-# only a fallback if the local copies are removed.
+# Golden datasets are vendored in-repo.
 LOCAL_DATA = os.path.join(os.path.dirname(__file__), "data")
-REF_DATA = "/root/reference/tests/data"
 
-requires_golden = pytest.mark.skipif(
-    not (os.path.isdir(LOCAL_DATA) or os.path.isdir(REF_DATA)),
-    reason="golden datasets not vendored or mounted",
-)
+# Absolute tolerances, the reference's own.
+SIMULATE_ATOL = 1e-6
+RECONSTRUCTION_ATOL = 1e-3
 
 
 def _load(name):
-    path = os.path.join(LOCAL_DATA, name)
-    if not os.path.isfile(path):
-        path = os.path.join(REF_DATA, name)
-    with lzma.open(path, "rb") as f:
+    with lzma.open(os.path.join(LOCAL_DATA, name), "rb") as f:
         return pickle.load(f)
 
 
-@requires_golden
-def test_ptycho_simulate_matches_reference_golden():
-    """Reproduce the stored ptycho dataset at the reference tolerance.
-
-    Mirrors `/root/reference/tests/ptycho/test_ptycho.py:190-204`
-    (``test_consistent_simulate``): same inputs, ``assert_allclose`` of the
-    amplitudes at atol=1e-6.
-    """
+def ptycho_simulate_golden():
+    """(got, want) amplitudes of the stored ptycho dataset."""
     import tike_tpu.ptycho as tp
 
     data, scan, probe, original = _load("ptycho_setup.pickle.lzma")
@@ -60,36 +48,21 @@ def test_ptycho_simulate_matches_reference_golden():
         fly=scan.shape[-2] // data.shape[-3],
     )
     assert sim.dtype == np.float32
-    np.testing.assert_array_equal(sim.shape, data.shape)
-    np.testing.assert_allclose(np.sqrt(sim), np.sqrt(data), atol=1e-6)
+    return np.sqrt(sim), np.sqrt(data)
 
 
-@requires_golden
-def test_lamino_simulate_matches_reference_golden():
-    """Reproduce the stored laminography dataset.
-
-    Mirrors `/root/reference/tests/test_lamino.py:130-140`: complex
-    projections allclose at atol=1e-6 (the reference data scale is ~6e-4, so
-    this is a tight relative bound on the USFFT chain: padding, Gaussian
-    kernel, checkerboard fftshift, and gather conventions all must match).
-    """
+def lamino_simulate_golden():
+    """(got, want) complex projections of the stored lamino dataset."""
     import tike_tpu.lamino as tl
 
     data, original, theta, tilt = _load("lamino_setup.pickle.lzma")
     sim = tl.simulate(original, theta, tilt, upsample=2)
     assert sim.dtype == np.complex64
-    np.testing.assert_array_equal(sim.shape, data.shape)
-    np.testing.assert_allclose(sim, data, atol=1e-6)
+    return sim, data
 
 
-@requires_golden
-def test_align_simulate_matches_reference_golden():
-    """Reproduce the stored alignment dataset.
-
-    Mirrors `/root/reference/tests/test_align.py:68-79`: Lanczos flow warp +
-    Fourier shift of the original image, allclose at atol=1e-6 (image scale
-    ~1.2). Pins the Lanczos window, edge clamping, and shift sign conventions.
-    """
+def align_simulate_golden():
+    """(got, want) of the stored alignment dataset."""
     import tike_tpu.align as ta
 
     data, original, flow, shift = _load("algin_setup.pickle.lzma")
@@ -101,29 +74,12 @@ def test_align_simulate_matches_reference_golden():
         angle=None,
     )
     assert sim.dtype == np.complex64
-    np.testing.assert_array_equal(sim.shape, data.shape)
-    np.testing.assert_allclose(sim, data, atol=1e-6)
+    return sim, data
 
 
-def test_gaussian_probe_matches_reference_golden():
-    """tp.gaussian is bit-identical to the reference's pickled output
-    (`/root/reference/tests/ptycho/test_ptycho.py:80-90`)."""
-    import tike_tpu.ptycho as tp
-
-    truth = _load("ptycho_gaussian.pickle.lzma")
-    np.testing.assert_array_equal(tp.gaussian(15, rin=0.8, rout=1.0), truth)
-
-
-@pytest.mark.slow
-def test_lamino_cgrad_matches_reference_golden_reconstruction():
-    """Our cgrad reproduces the reference's converged reconstruction.
-
-    The reference pins 1+30 cgrad iterations on the lamino_setup dataset
-    to lamino_cgrad.pickle at atol=1e-3
-    (`/root/reference/tests/test_lamino.py:146-241`). Despite a different
-    USFFT kernel (Kaiser-Bessel vs Gaussian) the result matches the
-    standard ~100x inside that tolerance.
-    """
+def lamino_cgrad_golden():
+    """(got, want): 1+30 cgrad iterations on lamino_setup vs the stored
+    converged reconstruction."""
     import tike_tpu.lamino
 
     data, original, theta, tilt = _load("lamino_setup.pickle.lzma")
@@ -136,16 +92,76 @@ def test_lamino_cgrad_matches_reference_golden_reconstruction():
         data, theta, tilt, obj=r["obj"], algorithm="cgrad", num_iter=30,
         eps=1e-3, cost_history=r.get("cost"),
     )
-    np.testing.assert_allclose(np.asarray(r["obj"]), standard, atol=1e-3)
+    return np.asarray(r["obj"]), standard
+
+
+def test_ptycho_simulate_matches_reference_golden():
+    """Reproduce the stored ptycho dataset at the reference tolerance.
+
+    Mirrors `upstream/tests/ptycho/test_ptycho.py:190-204`
+    (``test_consistent_simulate``): same inputs, ``assert_allclose`` of the
+    amplitudes at atol=1e-6.
+    """
+    got, want = ptycho_simulate_golden()
+    np.testing.assert_array_equal(got.shape, want.shape)
+    np.testing.assert_allclose(got, want, atol=SIMULATE_ATOL)
+
+
+def test_lamino_simulate_matches_reference_golden():
+    """Reproduce the stored laminography dataset.
+
+    Mirrors `upstream/tests/test_lamino.py:130-140`: complex
+    projections allclose at atol=1e-6 (the reference data scale is ~6e-4, so
+    this is a tight relative bound on the USFFT chain: padding, Gaussian
+    kernel, checkerboard fftshift, and gather conventions all must match).
+    """
+    got, want = lamino_simulate_golden()
+    np.testing.assert_array_equal(got.shape, want.shape)
+    np.testing.assert_allclose(got, want, atol=SIMULATE_ATOL)
+
+
+def test_align_simulate_matches_reference_golden():
+    """Reproduce the stored alignment dataset.
+
+    Mirrors `upstream/tests/test_align.py:68-79`: Lanczos flow warp +
+    Fourier shift of the original image, allclose at atol=1e-6 (image scale
+    ~1.2). Pins the Lanczos window, edge clamping, and shift sign conventions.
+    """
+    got, want = align_simulate_golden()
+    np.testing.assert_array_equal(got.shape, want.shape)
+    np.testing.assert_allclose(got, want, atol=SIMULATE_ATOL)
+
+
+def test_gaussian_probe_matches_reference_golden():
+    """tp.gaussian is bit-identical to the reference's pickled output
+    (`upstream/tests/ptycho/test_ptycho.py:80-90`)."""
+    import tike_tpu.ptycho as tp
+
+    truth = _load("ptycho_gaussian.pickle.lzma")
+    np.testing.assert_array_equal(tp.gaussian(15, rin=0.8, rout=1.0), truth)
+
+
+@pytest.mark.slow
+def test_lamino_cgrad_matches_reference_golden_reconstruction():
+    """Our cgrad reproduces the reference's converged reconstruction.
+
+    The reference pins 1+30 cgrad iterations on the lamino_setup dataset
+    to lamino_cgrad.pickle at atol=1e-3
+    (`upstream/tests/test_lamino.py:146-241`). Despite a different
+    USFFT kernel (Kaiser-Bessel vs Gaussian) the result matches the
+    standard ~100x inside that tolerance.
+    """
+    got, standard = lamino_cgrad_golden()
+    np.testing.assert_allclose(got, standard, atol=RECONSTRUCTION_ATOL)
     # And well inside: the achieved agreement is ~1e-5.
-    assert np.max(np.abs(np.asarray(r["obj"]) - standard)) < 1e-4
+    assert np.max(np.abs(got - standard)) < 1e-4
 
 
 @pytest.mark.slow
 def test_lamino_bucket_matches_reference_golden_reconstruction():
     """Our bucket solver reproduces the reference's converged result
     (same protocol as the cgrad golden; reference
-    `/root/reference/tests/test_lamino.py:243-255`, eps=1)."""
+    `upstream/tests/test_lamino.py:243-255`, eps=1)."""
     import tike_tpu.lamino.bucket as bucket
 
     data, original, theta, tilt = _load("lamino_setup.pickle.lzma")

@@ -184,7 +184,7 @@ class TestScanTrajectory:
 
     def test_coded_exposure_reference_vectors(self):
         """Bit-exact parity with the reference's pinned test vectors
-        (`/root/reference/tests/test_trajectory.py:31-54`)."""
+        (`upstream/tests/test_trajectory.py:31-54`)."""
         c_time = np.arange(11)
         c_dwell = np.ones(11) * 0.5
         time = np.array(

@@ -1,10 +1,9 @@
-"""tike-tpu: TPU-native ptycho-tomographic reconstruction in JAX.
+"""tike-tpu: ptycho-tomographic reconstruction in JAX.
 
-A from-scratch re-design of the capabilities of AdvancedPhotonSource/tike
-(reference mounted at /root/reference) for TPU hardware: pure-functional
-operators compiled by XLA, Pallas kernels for the hot gather/scatter paths,
-and a single `jax.sharding.Mesh` replacing the reference's ThreadPool/MPI
-communicator stack.
+A from-scratch re-design of the capabilities of AdvancedPhotonSource/tike:
+pure-functional operators compiled by XLA, and a single
+`jax.sharding.Mesh` replacing the reference's ThreadPool/MPI communicator
+stack.
 """
 
 __version__ = "0.1.0"

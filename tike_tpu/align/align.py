@@ -1,6 +1,6 @@
 """Alignment drivers: reconstruct, simulate, invert.
 
-TPU-native equivalent of `/root/reference/src/tike/align/align.py:19-88`.
+JAX equivalent of `upstream/src/tike/align/align.py:19-88`.
 """
 
 from __future__ import annotations
@@ -11,8 +11,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from tike_tpu.ops.alignment import alignment_fwd_p, alignment_inv_p
-from tike_tpu.utils.pairs import download, upload
-from tike_tpu.utils.transfer import to_host
 from . import solvers
 
 __all__ = ["reconstruct", "simulate", "invert"]
@@ -34,18 +32,18 @@ def simulate(original, **kwargs):
     """Return original transformed by the alignment operator."""
     kwargs = _to_device(kwargs)
     unaligned = alignment_fwd_p(
-        upload(np.asarray(original, np.complex64)), **kwargs
+        jnp.asarray(original, jnp.complex64), **kwargs
     )
-    return download(unaligned)
+    return np.asarray(unaligned)
 
 
 def invert(original, **kwargs):
     """Return original passed through the inverse alignment operator."""
     kwargs = _to_device(kwargs)
     aligned = alignment_inv_p(
-        upload(np.asarray(original, np.complex64)), **kwargs
+        jnp.asarray(original, jnp.complex64), **kwargs
     )
-    return download(aligned)
+    return np.asarray(aligned)
 
 
 def reconstruct(original, unaligned, algorithm, num_iter=1, rtol=-1, **kwargs):
@@ -67,5 +65,5 @@ def reconstruct(original, unaligned, algorithm, num_iter=1, rtol=-1, **kwargs):
         **kwargs,
     )
     return {
-        k: to_host(v) if np.ndim(v) > 0 else v for k, v in result.items()
+        k: np.asarray(v) if np.ndim(v) > 0 else v for k, v in result.items()
     }

@@ -1,17 +1,18 @@
 """Subpixel phase cross-correlation image registration.
 
-TPU-native equivalent of
-`/root/reference/src/tike/align/solvers/cross_correlation.py` (itself derived
+JAX equivalent of
+`upstream/src/tike/align/solvers/cross_correlation.py` (itself derived
 from skimage.registration.phase_cross_correlation / Guizar-Sicairos 2008):
 coarse shift by FFT cross-correlation peak, refined by an upsampled
 matrix-multiply DFT in a small neighborhood — the upsampled DFT is two batched
-matmuls, which is exactly what the MXU wants.
+matmuls.
 """
 
 from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -60,27 +61,20 @@ def cross_correlation(
 
     original/unaligned (N, H, W) complex. Returns {'shift': (N, 2), 'cost'}.
 
-    The numeric core runs as one pair-safe program (complex inputs enter
-    as float Pairs on relay backends; only the real shifts come back).
+    The numeric core runs as one program; only the real shifts come back.
     """
-    from tike_tpu.utils.pairs import upload
-    from tike_tpu.utils.transfer import to_host
-
     shifts = _cross_correlation_program(
-        upload(np.asarray(original, np.complex64)),
-        upload(np.asarray(unaligned, np.complex64)),
+        jnp.asarray(original, jnp.complex64),
+        jnp.asarray(unaligned, jnp.complex64),
         upsample_factor=int(upsample_factor),
         space=str(space).lower(),
         reg_weight=float(reg_weight),
     )
-    return {"shift": to_host(shifts).astype(np.float32), "cost": -1}
-
-
-from tike_tpu.utils.pairs import pair_jit as _pair_jit  # noqa: E402
+    return {"shift": np.asarray(shifts).astype(np.float32), "cost": -1}
 
 
 @functools.partial(
-    _pair_jit, static_argnames=("upsample_factor", "space", "reg_weight")
+    jax.jit, static_argnames=("upsample_factor", "space", "reg_weight")
 )
 def _cross_correlation_program(
     original,

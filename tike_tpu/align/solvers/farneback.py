@@ -1,6 +1,6 @@
 """Farneback dense optical-flow alignment.
 
-Equivalent of `/root/reference/src/tike/align/solvers/farneback.py`: a thin
+Equivalent of `upstream/src/tike/align/solvers/farneback.py`: a thin
 wrapper around OpenCV's calcOpticalFlowFarneback on 8-bit rescaled images.
 OpenCV is an optional host-side dependency (as in the reference); the import
 is deferred so the rest of the align package works without it.

@@ -1,6 +1,6 @@
 """Host-side scan-position partitioning into device stripes and mini-batches.
 
-TPU-native re-implementation of `/root/reference/src/tike/cluster.py`. These
+JAX re-implementation of `upstream/src/tike/cluster.py`. These
 algorithms run on the host in numpy (as in the reference, where `compact`
 explicitly moves to host because "indexing and serial operations is very slow
 on GPU") and produce integer index arrays consumed by the jitted solvers.

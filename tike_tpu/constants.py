@@ -1,6 +1,6 @@
 """Universal constants and physical relation functions.
 
-Equivalent of `/root/reference/src/tike/constants.py` (same units: keV, cm).
+Equivalent of `upstream/src/tike/constants.py` (same units: keV, cm).
 """
 
 __all__ = [

@@ -5,24 +5,24 @@ exactly quadratic and CGLS (conjugate gradients on the normal equations,
 `tike_tpu.opt.cgls_traced`) needs one fwd + one adj per inner iteration
 with optimal step lengths — no backtracking cost evaluations. The
 reference applies its generic Dai-Yuan + backtracking machinery here
-(`/root/reference/src/tike/lamino/solvers/cgrad.py`); ``algorithm="cgrad"``
+(`upstream/src/tike/lamino/solvers/cgrad.py`); ``algorithm="cgrad"``
 keeps that behavior for parity, ``algorithm="cgls"`` is the faster exact
-alternative. Each outer iteration runs as ONE pair-safe program.
+alternative. Each outer iteration runs as ONE program.
 """
 
 from __future__ import annotations
 
-import functools
 import logging
+
+import jax
 
 import tike_tpu.opt
 from tike_tpu.ops.lamino import LaminoConfig, lamino_adj_exact, lamino_fwd
-from tike_tpu.utils.pairs import pair_jit
 
 logger = logging.getLogger(__name__)
 
 
-@pair_jit(static_argnames=("cfg", "cg_iter"))
+@jax.jit(static_argnames=("cfg", "cg_iter"))
 def _cgls_outer_program(cfg, data, theta, obj, cg_iter):
     # CGLS requires the TRUE adjoint (lamino_adj_exact): the reference's
     # -xi adjoint identity drifts ~20% from adjointness at upsample=1
@@ -46,9 +46,8 @@ def cgls(
     **kwargs,
 ):
     """One outer iteration (= ``cg_iter`` CGLS steps) as one program."""
-    from tike_tpu.utils.transfer import scalar
 
     obj, cost_d = _cgls_outer_program(cfg, data, theta, obj, cg_iter)
-    cost = scalar(cost_d)
+    cost = float(cost_d)
     logger.info("%10s cost is %+12.5e", "object", cost)
     return {"obj": obj, "cost": cost}

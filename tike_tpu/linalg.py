@@ -1,7 +1,7 @@
 """Complex linear algebra helpers (JAX).
 
-TPU-native re-implementation of the reference utilities in
-`/root/reference/src/tike/linalg.py` (norm/mnorm/inner/projection/lstsq/
+JAX re-implementation of the reference utilities in
+`upstream/src/tike/linalg.py` (norm/mnorm/inner/projection/lstsq/
 orthogonalize_gs/pca_eig). All functions are pure and jit/vmap friendly.
 """
 
@@ -54,7 +54,7 @@ def lstsq(a, b, weights=None):
     a: (..., M, N), b: (..., M, K) -> x: (..., N, K). Optionally weighted by
     per-row `weights (..., M)`. Matches the reference's batched normal-equation
     solve (`linalg.py:33-58`), which is faster than SVD for the tiny (2x2)
-    systems ptychography needs and maps onto the MXU for batched matmuls.
+    systems ptychography needs and maps onto batched matmuls.
     """
     if weights is not None:
         w = weights[..., None]

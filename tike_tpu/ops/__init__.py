@@ -1,7 +1,7 @@
 """Pure-functional JAX operators: the compute core of tike-tpu.
 
 Replaces the reference's CuPy Operator classes + CUDA kernels
-(`/root/reference/src/tike/operators/cupy/`) with jit/vmap/shard_map-friendly
+(`upstream/src/tike/operators/cupy/`) with jit/vmap/shard_map-friendly
 functions.
 """
 

@@ -1,6 +1,6 @@
 """Non-rigid dense warps (optical-flow remap) by Lanczos interpolation.
 
-TPU-native equivalent of `/root/reference/src/tike/operators/cupy/flow.py`:
+JAX equivalent of `upstream/src/tike/operators/cupy/flow.py`:
 the per-image CUDA kernel-launch loop becomes a vmapped Lanczos remap.
 """
 

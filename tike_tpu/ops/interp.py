@@ -1,8 +1,8 @@
 """Lanczos-windowed 2D resampling (remap) — forward and adjoint.
 
-TPU-native equivalent of the reference CUDA kernels
+JAX equivalent of the reference CUDA kernels
 `fwd_lanczos_interp2D` / `adj_lanczos_interp2D`
-(`/root/reference/src/tike/operators/cupy/interp.cu:218-237`): for each
+(`upstream/src/tike/operators/cupy/interp.cu:218-237`): for each
 non-uniform sample point, a (2m+1)^2 neighborhood of the uniform grid is
 combined with 2-lobe Lanczos weights; points outside the grid contribute the
 constant `cval`. One `lax.scan` step per kernel tap does a batched gather

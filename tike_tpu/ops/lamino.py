@@ -1,6 +1,6 @@
 """Laminography operator: 3D USFFT onto tilted projection planes.
 
-TPU-native equivalent of `/root/reference/src/tike/operators/cupy/lamino.py`
+JAX equivalent of `upstream/src/tike/operators/cupy/lamino.py`
 and the `make_grids` CUDA kernel (`grid.cu:13-47`). The forward transform maps
 a cubic volume u (n,n,n) to complex projections (ntheta, n, n) by evaluating
 the volume's 3D Fourier transform on planes tilted by `tilt` and rotated by
@@ -74,9 +74,8 @@ def lamino_fwd(cfg: LaminoConfig, u, theta):
     Mirrors `lamino.py:73-107`: eq2us onto the tilted planes, then inverse
     2D FFT of each plane. The grids are passed row-structured — each
     (theta, detector-row) line shares its axis-0 frequency (f0 = kv sin
-    tilt) — which routes the USFFT onto the scatter-free MXU einsum path
-    (measured 90% of the gradient was the per-tap scatter otherwise;
-    profile/onchip/lamino_breakdown.log).
+    tilt) — which routes the USFFT onto the scatter-free einsum path
+    instead of one scatter-add per kernel tap.
     """
     n = cfg.n
     xi = make_grids(theta, n, cfg.tilt).reshape(theta.shape[0] * n, n, 3)
@@ -151,19 +150,14 @@ def lamino_grad(cfg: LaminoConfig, data, theta, obj):
     return out / (data.shape[-3] * cfg.n**3)
 
 
-# Pair-mode program boundaries (see tike_tpu.utils.pairs): on backends
-# without complex IO at program boundaries, call these with Pair-wrapped
-# complex inputs; complex outputs come back as Pairs. On CPU/GPU they are
-# plain jitted functions.
-from tike_tpu.utils.pairs import pair_jit as _pair_jit  # noqa: E402
-
-lamino_fwd_p = _pair_jit(lamino_fwd, static_argnames=("cfg",))
-lamino_adj_p = _pair_jit(lamino_adj, static_argnames=("cfg",))
-lamino_cost_p = _pair_jit(lamino_cost, static_argnames=("cfg",))
-lamino_grad_p = _pair_jit(lamino_grad, static_argnames=("cfg",))
+# Jitted driver-facing programs.
+lamino_fwd_p = jax.jit(lamino_fwd, static_argnames=("cfg",))
+lamino_adj_p = jax.jit(lamino_adj, static_argnames=("cfg",))
+lamino_cost_p = jax.jit(lamino_cost, static_argnames=("cfg",))
+lamino_grad_p = jax.jit(lamino_grad, static_argnames=("cfg",))
 
 
-@_pair_jit(static_argnames=("cfg",))
+@jax.jit(static_argnames=("cfg",))
 def lamino_step_scale(cfg: LaminoConfig, obj, theta):
     """CG step-length scale 2|A*A u| / |u| (`cgrad.py:9-24`) as one program."""
     import tike_tpu.linalg as _la

@@ -1,6 +1,6 @@
 """Noise-model cost functions and gradients for ptychography.
 
-TPU-native equivalent of `/root/reference/src/tike/operators/cupy/objective.py`.
+JAX equivalent of `upstream/src/tike/operators/cupy/objective.py`.
 The reference fuses elementwise kernels with ``cp.fuse()``; under jit XLA
 performs the same fusion automatically. Costs are means (not sums) so values
 are comparable across mini-batch sizes.

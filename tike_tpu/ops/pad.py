@@ -1,6 +1,6 @@
 """Per-image padding/cropping with unique corners.
 
-TPU-native equivalent of `/root/reference/src/tike/operators/cupy/pad.py`:
+JAX equivalent of `upstream/src/tike/operators/cupy/pad.py`:
 the reference's per-image Python loop becomes a vmapped dynamic-slice.
 """
 

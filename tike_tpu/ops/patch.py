@@ -1,16 +1,16 @@
 """Bilinear patch extraction / accumulation at fractional scan positions.
 
-TPU-native replacement for the reference CUDA kernels `fwd_patch`/`adj_patch`
-(`/root/reference/src/tike/operators/cupy/convolution.cu:146-165` launched from
-`patch.py:79-188`). Instead of one CUDA thread per patch pixel with atomicAdd,
-we express the same linear operator as XLA-friendly primitives:
+Plain-XLA replacement for the reference CUDA kernels `fwd_patch`/`adj_patch`
+(`upstream/src/tike/operators/cupy/convolution.cu:146-165` launched from
+`patch.py:79-188`), which run one CUDA thread per patch pixel and accumulate
+with atomicAdd. Two formulations of the same linear operator live here:
 
-- forward: a vmapped ``dynamic_slice`` of a (P+1, P+1) window per position,
-  then a bilinear combination of the window's four integer-shifted corners.
-  XLA lowers this to a batched gather; there is no data-dependent control flow.
-- adjoint: the exact transpose — spread each patch into a (P+1, P+1) window
-  with the four bilinear corner weights, then a single scatter-add of all
-  windows into the image. Scatter-add is deterministic on TPU (no atomics).
+- the production pair :func:`patch_fwd` / :func:`patch_adj`: windows are
+  addressed through (8, 128)-aligned tiles and the residual shift plus the
+  bilinear blend are folded into small banded selection-matrix einsums;
+- :func:`patch_adj_scatter`: the upstream design, one XLA scatter-add of all
+  bilinear windows. On a GPU it lowers to atomics, so its sums (like the
+  upstream kernel's) vary in the last bits from run to run.
 
 Semantics notes (match the reference):
 - ``positions`` are (y, x) coordinates of the *minimum corner* of each patch
@@ -38,14 +38,12 @@ import jax.numpy as jnp
 
 
 def _c2f(x):
-    """View complex as leading-axis (re, im) float pairs.
+    """View complex as leading-axis (re, im) float channels.
 
-    TPU gathers/dynamic-slices on complex dtypes are unsupported on some
-    backends (and slower even where supported); all windowed gathers and
-    scatters below run on float pairs and recombine at the end. The channel
-    axis leads (2, ...) so the minor two dims stay large and tile-aligned —
-    a trailing channel of 2 would be padded to 128 lanes by the TPU layout,
-    a 64x memory blowup. Real inputs pass through unchanged.
+    All windowed gathers, scatters and selection einsums below run on real
+    float channels and recombine at the end. The channel axis leads (2, ...)
+    so the minor two dims stay the large, contiguous image axes. Real
+    inputs pass through unchanged.
     """
     if jnp.iscomplexobj(x):
         return jnp.stack([x.real, x.imag], axis=0)
@@ -65,11 +63,10 @@ def _split_positions(positions):
     return lo.astype(jnp.int32), frac
 
 
-# TPU-native formulation: every window is addressed through a corner that is
-# aligned to the native (sublane, lane) = (8, 128) tiling, so gathers and
-# read-modify-writes touch whole tiles (XLA keeps them in place / fast DMA).
+# Tiled formulation: every window is addressed through a corner aligned to an
+# (8, 128) tile grid, so gathers and read-modify-writes touch whole tiles.
 # The residual shift (corner mod (8, 128)) AND the bilinear fractional blend
-# are folded into tiny banded selection matrices applied on the MXU:
+# are folded into tiny banded selection matrices applied as einsums:
 #   patch  = R^T @ tile @ C      (forward)
 #   tile   = R @ patch @ C^T     (adjoint)
 # where R = (1-fy)*S_ry + fy*S_{ry+1} selects/blends rows shifted by the
@@ -121,11 +118,6 @@ def _padded_image_dims(
     return -(-h // sub) * sub + th, -(-w // lane) * lane + tw
 
 
-# Round-4 "split-blend" formulation (pure 0/1 selection matmuls at DEFAULT
-# per-operand precision + a separate elementwise bilinear stage) was measured
-# on-chip in round 5 (profile/onchip/patch_variants.log) and DELETED:
-# patch_fwd was flat (1.02x) and patch_adj 2.4x slower than the fused-blend
-# einsums below. The fused selection+blend matmul is the production path.
 def patch_fwd(
     images: jax.Array,
     positions: jax.Array,
@@ -155,19 +147,20 @@ def patch_fwd(
     padded = jnp.pad(imf, ((0, 0), (0, hp - h), (0, wp - w)))
     cy, cx = _aligned_corners(corner)
 
-    # Fetch each window's native (8, 128) tiles with ONE jnp.take of 4 KB
-    # rows instead of a vmapped dynamic_slice per window: measured on-chip
-    # (profile/onchip/patch_stage.log, round 5) the take moves the same
-    # bytes 25% faster and the take+tiled-einsum total is 1.8x faster than
-    # the fused dynamic_slice+einsum (3.49 vs 6.18 ms at 1000 x 128²).
+    # Fetch each window's (8, 128) tiles with ONE jnp.take of whole tiles
+    # instead of a vmapped dynamic_slice per window.
     nbands, ntx = hp // _SUB, wp // _LANE
     ky, kx = th // _SUB, tw // _LANE
-    tile_idx = (
-        ((cy // _SUB)[:, None, None]
-         + jnp.arange(ky, dtype=jnp.int32)[None, :, None]) * ntx
-        + (cx // _LANE)[:, None, None]
-        + jnp.arange(kx, dtype=jnp.int32)[None, None, :]
-    ).reshape(-1)
+    # Clamp the band and tile-column indices BEFORE flattening: a window
+    # past the bottom/right edge then reads the trailing zero-padding tiles
+    # instead of aliasing into the next band (or off the end of the array).
+    by = jnp.clip(
+        (cy // _SUB)[:, None] + jnp.arange(ky, dtype=jnp.int32), 0, nbands - 1
+    )
+    bx = jnp.clip(
+        (cx // _LANE)[:, None] + jnp.arange(kx, dtype=jnp.int32), 0, ntx - 1
+    )
+    tile_idx = (by[:, :, None] * ntx + bx[:, None, :]).reshape(-1)
     q = jnp.moveaxis(
         padded.reshape(nch, nbands, _SUB, ntx, _LANE), 3, 2
     ).reshape(nch, nbands * ntx, _SUB, _LANE)
@@ -175,12 +168,10 @@ def patch_fwd(
         nch, n, ky, kx, _SUB, _LANE
     )
     R, C = _selection_mats(p, corner, frac)
-    # patch = R^T @ tile @ C on the MXU, the (y, x) contractions
-    # decomposed over the (8, 128) tile grid (two clean batched matmuls;
-    # a single 3-operand tiled einsum lowers pathologically). Default
-    # HIGHEST keeps f32 blend weights (the parity surface); solver
-    # internals pass HIGH (bf16_3x, measured ~15% faster with 3.6e-5
-    # relative error — BENCH_TABLE.md).
+    # patch = R^T @ tile @ C, the (y, x) contractions decomposed over the
+    # (8, 128) tile grid as two batched matmuls. Default HIGHEST keeps f32
+    # blend weights (the parity surface); solver internals pass
+    # tike_tpu.precision.SOLVER_MATMUL.
     Rt = R.reshape(n, ky, _SUB, p)
     Ct = C.reshape(n, kx, _LANE, p)
     t1 = jnp.einsum(
@@ -210,10 +201,11 @@ def patch_adj_scatter(
     images_shape: tuple[int, int],
     images: jax.Array | None = None,
 ) -> jax.Array:
-    """patch_adj via one big XLA scatter-add (reference oracle formulation).
+    """patch_adj via one big XLA scatter-add (the upstream kernel's design).
 
-    TPU scatters with colliding indices serialize per element, so this is
-    the slow path there; see :func:`patch_adj` for the production version.
+    Colliding windows accumulate through the scatter; on a GPU that is
+    atomics, so the sum's rounding varies from run to run. See
+    :func:`patch_adj` for the production version.
     """
     h, w = images_shape
     n, p, _ = patches.shape
@@ -250,6 +242,13 @@ def patch_adj_scatter(
     return _f2c(acc.reshape(nch, h, w), patches.dtype)
 
 
+def uses_cell_grid(images_shape: tuple[int, int], n: int) -> bool:
+    """Whether :func:`patch_adj` merges ``n`` windows on the coarse cell grid
+    (True) or accumulates them with a sequential scan (False)."""
+    h, w = images_shape
+    return (-(-h // 128) + 1) * (-(-w // _LANE) + 1) < n
+
+
 def patch_adj(
     patches: jax.Array,
     positions: jax.Array,
@@ -259,19 +258,13 @@ def patch_adj(
 ) -> jax.Array:
     """Adjoint of :func:`patch_fwd`: accumulate patches into an image.
 
-    TPU-tuned formulation. A naive scatter-add serializes colliding indices
-    per *element*; a scan of window read-modify-writes at arbitrary offsets
-    forces XLA to copy the full accumulator every step (lane-unaligned
-    ``dynamic_update_slice`` cannot update in place). Instead each patch is
-    rendered into a tile whose corner is (8, 128)-aligned — the residual
-    offset and the bilinear fractional blend folded into MXU selection
-    matrices (tile = R @ patch @ C^T) — and the tiles are accumulated with
-    dynamic_update_slices at aligned offsets, which XLA performs in place.
-
-    Overlapping windows are handled exactly because the accumulation is
-    sequential. (A K-way round-robin split over independent accumulators
-    was measured slower: the TPU core executes scan steps sequentially, so
-    the per-step update cost is not a hideable HBM latency.)
+    Tiled formulation, scatter-free: each patch is rendered into a tile
+    whose corner is (8, 128)-aligned — the residual offset and the bilinear
+    fractional blend folded into selection matrices (tile = R @ patch @ C^T)
+    — and the tiles are accumulated either by a one-hot merge onto a coarse
+    cell grid plus a few dense shifted adds (dense scans), or by a
+    sequential scan of aligned dynamic_update_slices, which XLA performs in
+    place. Both are deterministic and handle overlapping windows exactly.
 
     Parameters
     ----------
@@ -294,7 +287,7 @@ def patch_adj(
     sub = _SUB
     gy = -(-h // 128) + 1
     gx = -(-w // _LANE) + 1
-    merge = gy * gx < n
+    merge = uses_cell_grid((h, w), n)
     if merge:
         sub = 128
 
@@ -302,9 +295,8 @@ def patch_adj(
     cy, cx = _aligned_corners(corner, sub)
 
     # tile = R @ patch @ C^T: the exact transpose of the forward's
-    # selection-matrix extraction, on the MXU. Default HIGHEST is the
-    # parity surface; solver gradient internals pass HIGH (~8% faster,
-    # ~2e-3 relative — below the noise of a gradient step).
+    # selection-matrix extraction. Default HIGHEST is the parity surface;
+    # solver gradient internals pass tike_tpu.precision.SOLVER_MATMUL.
     R, C = _selection_mats(p, corner, frac, sub)
     tiles = jnp.einsum(
         "nya,ncab,nxb->ncyx",
@@ -321,7 +313,9 @@ def patch_adj(
         onehot = (
             gid[:, None] == jnp.arange(g, dtype=jnp.int32)[None, :]
         ).astype(jnp.float32)
-        tiles = jnp.einsum("ng,ncyx->gcyx", onehot, tiles)
+        tiles = jnp.einsum(
+            "ng,ncyx->gcyx", onehot, tiles, precision=precision
+        )
         # The merged tiles live on an exact (sub x 128) cell grid, so the
         # sequential scan of read-modify-writes (169+ tiny steps whose
         # per-step launch overhead dominated) is replaced by splitting each

@@ -1,7 +1,7 @@
 """The composite ptychography forward model (JAX, functional).
 
-TPU-native equivalent of the reference operator stack
-(`/root/reference/src/tike/operators/cupy/ptycho.py:26-204`,
+JAX equivalent of the reference operator stack
+(`upstream/src/tike/operators/cupy/ptycho.py:26-204`,
 `multislice.py:35-279`, `convolution.py:11-154`): far-field propagation of a
 probe modulated by (possibly multi-slice) object transmission patches.
 
@@ -159,21 +159,19 @@ def ptycho_fwd(
 def ptycho_fwd_with_probes(cfg, psi, scan, probe, return_patches=False):
     """Forward model also returning per-slice incident probes for solvers.
 
-    Solver-internal: propagation goes through propagation_fwd_fast, which
-    is the native FFT unless the opt-in TIKE_MATMUL_FFT_MAX knob enables
-    the DFT-matmul variant; the parity-facing ptycho_fwd always uses the
-    exact FFT. The patch einsum runs at HIGH precision here. With
-    ``return_patches`` also returns the per-slice object windows for
-    backward-pass reuse (see :func:`multislice_fwd`).
+    Solver-internal: the patch einsum runs at
+    :data:`tike_tpu.precision.SOLVER_MATMUL`. With ``return_patches`` also
+    returns the per-slice object windows for backward-pass reuse (see
+    :func:`multislice_fwd`).
     """
-    from .propagation import propagation_fwd_fast
+    from ..precision import SOLVER_MATMUL
 
     out = multislice_fwd(
         cfg, psi, scan, probe,
-        precision=jax.lax.Precision.HIGH,
+        precision=SOLVER_MATMUL,
         return_patches=return_patches,
     )
-    farplane = propagation_fwd_fast(_pad_to_detector(out[0], cfg))
+    farplane = propagation_fwd(_pad_to_detector(out[0], cfg))
     if return_patches:
         return farplane, out[1], out[2]
     return farplane, out[1]
@@ -272,10 +270,7 @@ def ptycho_cost(
     return objective.COST[model](data, intensity)
 
 
-from ..utils.pairs import pair_jit as _pair_jit
-
-
-@functools.partial(_pair_jit, static_argnames=("cfg",))
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def simulate_intensity(
     cfg: PtychoConfig,
     psi: jax.Array,

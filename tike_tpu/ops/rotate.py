@@ -1,6 +1,6 @@
 """Rotation of 2D image stacks by Lanczos remap on a rotated grid.
 
-TPU-native equivalent of `/root/reference/src/tike/operators/cupy/rotate.py`.
+JAX equivalent of `upstream/src/tike/operators/cupy/rotate.py`.
 """
 
 from __future__ import annotations

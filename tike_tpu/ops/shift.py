@@ -1,6 +1,6 @@
 """Sub-pixel shift of image stacks by Fourier phase ramp.
 
-TPU-native equivalent of `/root/reference/src/tike/operators/cupy/shift.py`.
+JAX equivalent of `upstream/src/tike/operators/cupy/shift.py`.
 """
 
 from __future__ import annotations

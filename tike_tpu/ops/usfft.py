@@ -1,12 +1,12 @@
 """Unequally-spaced fast Fourier transforms (USFFT / NUFFT) in JAX.
 
-TPU-native equivalent of `/root/reference/src/tike/operators/cupy/usfft.py`
+JAX equivalent of `upstream/src/tike/operators/cupy/usfft.py`
 plus its CUDA kernels (`usfft.cu:103-140`). The composition is identical —
 zero-pad, Gaussian-kernel correction, FFT, and kernel interpolation — but the
 gather/scatter between the uniform and non-uniform grids is expressed as a
 `lax.scan` over the (2m)^3 kernel taps: each step is one batched gather (or
-scatter-add) of all N non-uniform points, which XLA maps onto the TPU's
-vectorized gather/scatter rather than one CUDA thread per point.
+scatter-add) of all N non-uniform points, which XLA maps onto a vectorized
+gather/scatter rather than one CUDA thread per point.
 
 Frequency convention (same as the reference): uniform grids are
 zero-centered, non-uniform frequencies x are in [-0.5, 0.5), and
@@ -86,7 +86,7 @@ def _tap_offsets(m: int):
 # with w = 2 pi m xi. Weights are evaluated per axis once per point (a
 # (N, 2m) table) instead of per 3D tap; the tap scan just multiplies three
 # table columns. Accuracy semantics match the reference's eps parameter
-# (`/root/reference/src/tike/operators/cupy/usfft.py:119-163`).
+# (`upstream/src/tike/operators/cupy/usfft.py:119-163`).
 # ---------------------------------------------------------------------------
 
 
@@ -272,17 +272,16 @@ def scatter_kb(f, x, n: int, m: int, beta: float):
 
 
 # ---------------------------------------------------------------------------
-# Row-structured KB transform (round 5).
+# Row-structured KB transform.
 #
-# The tap-scan scatter above is one full-grid scatter-add per kernel tap;
-# measured on-chip it is 90% of the laminography gradient (341 ms of 379 ms,
-# profile/onchip/lamino_breakdown.log) because colliding scatter updates
-# serialize on TPU. Laminography's frequencies are not arbitrary points: each
+# The tap-scan scatter above is one full-grid scatter-add per kernel tap,
+# with colliding updates. Laminography's frequencies are not arbitrary
+# points: each
 # (theta, detector-row) is a LINE of points whose axis-0 coordinate is
 # constant along the line (`lamino.make_grids`: f0 = kv*sin(tilt) is
 # independent of theta and ku). For such (R, C, 3) row-structured point sets
-# the whole spread/interpolation becomes a chain of banded-dense einsums on
-# the MXU — no gather, no scatter:
+# the whole spread/interpolation becomes a chain of banded-dense einsums —
+# no gather, no scatter:
 #
 #   scatter:  S[k0,k1,k2] = sum_r w0[r,k0] * sum_c w1[r,c,k1] w2[r,c,k2] f[r,c]
 #   gather :  F[r,c] = sum_k2 w2[r,c,k2] sum_k1 w1[r,c,k1] sum_k0 w0[r,k0] G
@@ -336,7 +335,7 @@ def gather_kb_rows(
     ``x`` is (R, C, 3) with ``x[..., 0]`` constant along axis 1 (each row of
     points shares its axis-0 coordinate — laminography's tilted-plane grids
     have this shape per (theta, detector-row) line). Returns (R, C) complex.
-    Same math as :func:`gather_kb`; MXU einsums instead of a tap scan.
+    Same math as :func:`gather_kb`; einsums instead of a tap scan.
     """
     R, C, _ = x.shape
     G2 = jnp.stack([Fe.real, Fe.imag])  # (2, n, n, n)
@@ -409,8 +408,7 @@ def gather(Fe, x, n: int, m: int, mu: float):
     cons1 = -np.pi**2 / mu
     half = n // 2
     ell = jnp.floor(n * x).astype(jnp.int32)  # (N, 3)
-    # Complex gathers are unsupported/slow on some TPU backends; gather the
-    # (re, im) float pair instead and recombine.
+    # Gather the (re, im) float channels and recombine.
     Fe_flat = jnp.stack([Fe.real, Fe.imag], axis=-1).reshape(-1, 2)
     offsets = jnp.asarray(_tap_offsets(m))  # (T, 3)
 
@@ -478,7 +476,7 @@ def eq2us(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb"):
 
     ``x`` may instead be (R, C, 3) with ``x[..., 0]`` constant along axis 1
     (row-structured points, e.g. laminography's tilted-plane grids): the KB
-    path then uses the scatter-free MXU einsum formulation
+    path then uses the scatter-free einsum formulation
     (:func:`gather_kb_rows`) and returns (R, C).
     """
     end_dtype = f.real.dtype
@@ -515,7 +513,7 @@ def us2eq(f, x, n: int, eps: float, upsample: float = 1, kernel: str = "kb"):
     f (N,) complex at frequencies x (N,3). Mirrors `usfft.py:236-280`.
     ``kernel`` as in :func:`eq2us`. Row-structured input — f (R, C) with
     x (R, C, 3), ``x[..., 0]`` constant along axis 1 — takes the
-    scatter-free MXU path (:func:`scatter_kb_rows`) on the KB kernel.
+    scatter-free einsum path (:func:`scatter_kb_rows`) on the KB kernel.
     """
     end_dtype = f.real.dtype
     if kernel == "kb":

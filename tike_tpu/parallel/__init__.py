@@ -1,7 +1,7 @@
 """Device-mesh parallelism for tike-tpu.
 
 Replaces the reference's entire communicators layer
-(`/root/reference/src/tike/communicators/`: ThreadPool + MPIComm + stream
+(`upstream/src/tike/communicators/`: ThreadPool + MPIComm + stream
 pipelines, ~1500 LoC of explicit device-to-device copies) with a single
 jax.sharding.Mesh. The parallel decomposition is data-parallel over
 diffraction patterns (the reference's primary axis, SURVEY.md §2.3):
@@ -48,36 +48,16 @@ def batch_sharding(mesh: Mesh, axis: int = 0) -> NamedSharding:
 
 # ---------------------------------------------------------------------------
 # Multi-process (jax.distributed) array placement and gathering, shared by
-# the striped ptycho path and the lamino/bucket drivers. All are Pair-aware
-# (tike_tpu.utils.pairs): complex host data may arrive as (..., 2) float
-# pairs on relay backends.
+# the striped ptycho path and the lamino/bucket drivers.
 # ---------------------------------------------------------------------------
 
 
-def _pair_aware(fn):
-    from tike_tpu.utils.pairs import (
-        Pair,
-        complex_to_pair_host,
-        pair_mode,
-    )
-
-    def wrapper(x, *args, **kwargs):
-        if isinstance(x, Pair):
-            return Pair(fn(np.asarray(x.data), *args, **kwargs))
-        x = np.asarray(x)
-        if np.iscomplexobj(x) and pair_mode():
-            return Pair(fn(complex_to_pair_host(x), *args, **kwargs))
-        return fn(x, *args, **kwargs)
-
-    return wrapper
-
-
-@_pair_aware
 def put_process_local(local_block, sharding, global_rows: int):
     """Assemble a globally-sharded array from this process's leading-axis
     block (`jax.make_array_from_process_local_data`); single-process falls
     back to a plain device_put."""
     if jax.process_count() > 1:
+        local_block = np.asarray(local_block)
         return jax.make_array_from_process_local_data(
             sharding,
             local_block,
@@ -86,11 +66,11 @@ def put_process_local(local_block, sharding, global_rows: int):
     return jax.device_put(local_block, sharding)
 
 
-@_pair_aware
 def put_replicated_global(host, sharding):
     """Place an identical full host array on every device of a (possibly
     multi-process) mesh."""
     if jax.process_count() > 1:
+        host = np.asarray(host)
         return jax.make_array_from_callback(
             host.shape, sharding, lambda idx: host[idx]
         )
@@ -101,14 +81,8 @@ def fetch_global(x) -> np.ndarray:
     """Host copy of a (possibly cross-process) sharded array.
 
     Gathers non-addressable shards via `process_allgather` (the
-    reference's rank-0 MPI gather at join time); Pair leaves come back as
-    complex numpy.
+    reference's rank-0 MPI gather at join time).
     """
-    from tike_tpu.utils.pairs import Pair, pair_to_complex_host
-    from tike_tpu.utils.transfer import to_host
-
-    if isinstance(x, Pair):
-        return pair_to_complex_host(fetch_global(x.data))
     if (
         jax.process_count() > 1
         and hasattr(x, "is_fully_addressable")
@@ -117,4 +91,4 @@ def fetch_global(x) -> np.ndarray:
         from jax.experimental import multihost_utils
 
         return np.asarray(multihost_utils.process_allgather(x, tiled=True))
-    return to_host(x)
+    return np.asarray(x)

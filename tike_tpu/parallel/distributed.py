@@ -1,14 +1,14 @@
-"""Multi-host (DCN) tier: the reference's MPI axis, TPU-native.
+"""Multi-host tier: the reference's MPI axis in JAX.
 
 The reference composes two communication tiers — a ThreadPool over the GPUs
 of one node and mpi4py across nodes — and hand-writes hierarchical
 reductions (pool-reduce then MPI.Allreduce,
-`/root/reference/src/tike/communicators/comm.py:80-136`) plus per-rank data
+`upstream/src/tike/communicators/comm.py:80-136`) plus per-rank data
 loading (`MPIio_ptycho` stripes scan positions across ranks,
-`mpi.py:61-92`). On TPU both tiers are one device mesh: every process
-contributes its local chips to a single global `jax.sharding.Mesh`, GSPMD
-`psum` reductions ride ICI within a slice and DCN between hosts
-automatically, and the only genuinely multi-host concern left is *data
+`mpi.py:61-92`). Here both tiers are one device mesh: every process
+contributes its local devices to a single global `jax.sharding.Mesh`, GSPMD
+`psum` reductions cross devices and hosts automatically, and the only
+genuinely multi-host concern left is *data
 placement* — each process must load only its own stripe of the diffraction
 patterns and contribute it to the globally-sharded array.
 
@@ -55,8 +55,8 @@ def initialize(
     ``jax.distributed.initialize`` itself, which refuses to run once the
     XLA backend exists (so this wrapper must NOT touch ``jax.process_count``
     or ``jax.devices`` first). No-op when the distributed runtime is
-    already attached. On Cloud TPU pods all arguments are auto-detected
-    from the environment.
+    already attached. Where the cluster environment describes the job (for
+    example SLURM), all arguments are auto-detected.
     """
     # Detect prior initialization WITHOUT initializing the backend:
     # the global client object exists iff initialize() already ran.
@@ -67,13 +67,13 @@ def initialize(
     if _state is not None and getattr(_state, "client", None) is not None:
         return  # already initialized
     if coordinator_address is None and num_processes is None:
-        # Auto-detected environment (TPU pod metadata / env vars).
+        # Auto-detected environment (cluster env vars).
         try:
             jax.distributed.initialize(**kwargs)
         except Exception as error:
             # Only swallow the genuinely-single-process case; re-raise when
-            # the backend was already touched (a real ordering bug) so pod
-            # runs cannot silently degrade to single-process mode.
+            # the backend was already touched (a real ordering bug) so
+            # multi-host runs cannot silently degrade to single-process mode.
             if "must be called before" in str(error):
                 raise
             logger.info(

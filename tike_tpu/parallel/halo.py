@@ -1,7 +1,7 @@
 """Halo exchange for row-striped object arrays.
 
-TPU-native equivalent of the reference's `ThreadPool.swap_edges`
-(`/root/reference/src/tike/communicators/pool.py:415-476`): when the object
+JAX equivalent of the reference's `ThreadPool.swap_edges`
+(`upstream/src/tike/communicators/pool.py:415-476`): when the object
 is decomposed into row stripes across devices, neighboring stripes share a
 probe-width overlap that each epoch must be blended with a linear cross-fade
 ramp so the seam stays consistent.

@@ -1,6 +1,6 @@
 """Exitwave update options and Poisson step-length solvers.
 
-TPU-native equivalent of `/root/reference/src/tike/ptycho/exitwave.py`.
+JAX equivalent of `upstream/src/tike/ptycho/exitwave.py`.
 The boolean-mask advanced indexing of the reference (dynamic shapes) is
 replaced by masked reductions with static shapes, which is required for jit.
 """

@@ -1,6 +1,6 @@
 """Probe initialization from a Fresnel zone-plate optics model.
 
-Equivalent of `/root/reference/src/tike/ptycho/fresnel.py`: build the zone
+Equivalent of `upstream/src/tike/ptycho/fresnel.py`: build the zone
 plate's complex transmission, Fresnel-propagate to the (defocused) sample
 plane, and normalize. Host-side numpy — runs once at setup.
 """

@@ -1,6 +1,6 @@
 """Loading and preprocessing raw beamline data from disk.
 
-Equivalent of `/root/reference/src/tike/ptycho/io.py`: APS Velociprobe and
+Equivalent of `upstream/src/tike/ptycho/io.py`: APS Velociprobe and
 LYNX instrument loaders plus position unit conversion. Host-side numpy/h5py;
 h5py is imported lazily so the rest of the package works without it.
 """

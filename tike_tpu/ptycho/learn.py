@@ -1,21 +1,21 @@
 """Helpers for generating ptychographic deep-learning training data.
 
-Equivalent of `/root/reference/src/tike/ptycho/learn.py`.
+Equivalent of `upstream/src/tike/ptycho/learn.py`.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from tike_tpu.ops.patch import patch_fwd
-from tike_tpu.utils.pairs import download, pair_jit, upload
 from .position import check_allowed_positions
 
 __all__ = ["extract_patches"]
 
 # Module-level so the jit cache survives across calls.
-_patch_fwd_p = pair_jit(patch_fwd, static_argnames=("patch_width",))
+_patch_fwd_p = jax.jit(patch_fwd, static_argnames=("patch_width",))
 
 
 def extract_patches(psi, scan, patch_width):
@@ -25,12 +25,6 @@ def extract_patches(psi, scan, patch_width):
     (POSI, patch_width, patch_width) complex64 numpy array.
     """
     check_allowed_positions(scan, psi, (patch_width, patch_width))
-    # Pair-safe boundaries: complex input/patches never cross a program
-    # boundary on relay backends.
     return np.asarray(
-        download(
-            _patch_fwd_p(
-                upload(np.asarray(psi)), jnp.asarray(scan), patch_width
-            )
-        )
+        _patch_fwd_p(jnp.asarray(psi), jnp.asarray(scan), patch_width)
     )

@@ -1,6 +1,6 @@
 """Object (psi) options, constraints, and helpers.
 
-TPU-native equivalent of `/root/reference/src/tike/ptycho/object.py`.
+JAX equivalent of `upstream/src/tike/ptycho/object.py`.
 Constraints are jit-friendly jnp functions; the 3x3 smoothing convolution is
 expressed as shifted adds (XLA fuses it) rather than an ndimage call.
 """
@@ -16,7 +16,6 @@ import numpy.typing as npt
 import jax.numpy as jnp
 
 import tike_tpu.linalg
-from tike_tpu.utils.transfer import to_host
 from tike_tpu.precision import cfloating, floating, integer
 
 logger = logging.getLogger(__name__)
@@ -97,11 +96,11 @@ class ObjectOptions:
     def copy_to_host(self) -> "ObjectOptions":
         out = self._clone()
         if self.v is not None:
-            out.v = to_host(self.v)
+            out.v = np.asarray(self.v)
         if self.m is not None:
-            out.m = to_host(self.m)
+            out.m = np.asarray(self.m)
         if self.preconditioner is not None:
-            out.preconditioner = to_host(self.preconditioner)
+            out.preconditioner = np.asarray(self.preconditioner)
         return out
 
     def resample(self, factor: float, interp=None) -> "ObjectOptions":

@@ -1,6 +1,6 @@
 """Probe options, eigen (variable) probes, mode factories, and constraints.
 
-TPU-native equivalent of `/root/reference/src/tike/ptycho/probe.py`.
+JAX equivalent of `upstream/src/tike/ptycho/probe.py`.
 
 Probes are (1, 1, SHARED, W, H) complex64; eigen probes are
 (1, EIGEN, SHARED, W, H) and eigen weights are (POSI, EIGEN + 1, SHARED).
@@ -19,7 +19,6 @@ import numpy as np
 import numpy.typing as npt
 
 import tike_tpu.linalg as la
-from tike_tpu.utils.transfer import to_host
 from tike_tpu.precision import cfloating, floating
 from tike_tpu.utils.ndimage import (
     center_of_mass2d,
@@ -151,11 +150,11 @@ class ProbeOptions:
     def copy_to_host(self) -> "ProbeOptions":
         out = self._clone()
         if self.v is not None:
-            out.v = to_host(self.v)
+            out.v = np.asarray(self.v)
         if self.m is not None:
-            out.m = to_host(self.m)
+            out.m = np.asarray(self.m)
         if self.preconditioner is not None:
-            out.preconditioner = to_host(self.preconditioner)
+            out.preconditioner = np.asarray(self.preconditioner)
         return out
 
     def resample(self, factor: float, interp=None) -> "ProbeOptions":
@@ -164,27 +163,24 @@ class ProbeOptions:
 
 
 def _host_safe(static_argnames=()):
-    """Make a probe utility callable standalone on relay backends.
+    """Make a probe utility callable standalone on host arrays.
 
     These functions run unchanged inside jitted programs (their
     ``jnp.asarray`` is a no-op on tracers). Called standalone with a host
-    (numpy) complex array, a direct upload would cross the relay's
-    complex-free program boundary — so host inputs route through a
-    pair_jit program and come back as numpy.
+    (numpy) array, the input runs through one jitted program and comes back
+    as numpy.
     """
     import functools
 
-    from tike_tpu.utils.pairs import download, pair_jit, upload
-
     def deco(fn):
-        prog = pair_jit(fn, static_argnames=static_argnames)
+        prog = jax.jit(fn, static_argnames=static_argnames)
 
         @functools.wraps(fn)
         def wrapper(probe, *args, **kwargs):
             if isinstance(probe, np.ndarray):
-                out = prog(upload(probe), *args, **kwargs)
+                out = prog(jnp.asarray(probe), *args, **kwargs)
                 return jax.tree_util.tree_map(
-                    download,
+                    np.asarray,
                     out,
                     is_leaf=lambda v: hasattr(v, "shape"),
                 )
@@ -242,10 +238,10 @@ def constrain_variable_probe(variable_probe, weights):
         la.norm(weights[..., 1:, :probes_with_modes], axis=-3, keepdims=True)
         ** 2
     )
-    weights = np.array(to_host(weights))  # writable host copies for sort
-    variable_probe = np.array(to_host(variable_probe))
+    weights = np.array(np.asarray(weights))  # writable host copies for sort
+    variable_probe = np.array(np.asarray(variable_probe))
     for i in range(probes_with_modes):
-        order = np.argsort(-to_host(power)[..., i].flatten())
+        order = np.argsort(-np.asarray(power)[..., i].flatten())
         weights[..., 1:, i] = weights[..., 1 + order, i]
         variable_probe[..., :, i, :, :] = variable_probe[..., order, i, :, :]
 
@@ -475,8 +471,8 @@ def _orthogonalize_eig_body(x):
     result = (jnp.swapaxes(vectors, -1, -2) @ flat).reshape(x.shape)
     pwr = jnp.sum((result * jnp.conj(result)).real, axis=(-2, -1))
     order = jnp.argsort(-pwr.reshape(-1))
-    # Permute modes with a one-hot matmul: complex gathers are unsupported
-    # on some TPU backends and a (M, M) matmul is trivially cheap.
+    # Permute modes with a one-hot matmul: a (M, M) matmul is trivially
+    # cheap.
     k = pwr.reshape(-1).shape[0]
     perm = jax.nn.one_hot(order, k, dtype=result.real.dtype)
     flat_modes = result.reshape(k, -1)
@@ -489,13 +485,6 @@ def _orthogonalize_eig_body(x):
 _orthogonalize_eig_program = jax.jit(_orthogonalize_eig_body)
 
 
-# pair_jit defers backend detection to the first call, so module-level
-# wrapping stays import-safe while keeping a stable jit cache.
-from tike_tpu.utils.pairs import pair_jit as _pair_jit  # noqa: E402
-
-_orthogonalize_eig_pair = _pair_jit(_orthogonalize_eig_body)
-
-
 def orthogonalize_eig(x):
     """Orthogonalize modes via eigenvectors of the pairwise dot product.
 
@@ -503,13 +492,10 @@ def orthogonalize_eig(x):
     `probe.py:726-770`. One jitted program; the power vector is the only
     host transfer.
     """
-    if isinstance(x, np.ndarray):
-        from tike_tpu.utils.pairs import download, upload
-
-        result, pwr = _orthogonalize_eig_pair(upload(x))
-        return download(result), to_host(pwr)
     result, pwr = _orthogonalize_eig_program(jnp.asarray(x))
-    return result, to_host(pwr)
+    if isinstance(x, np.ndarray):
+        result = np.asarray(result)
+    return result, np.asarray(pwr)
 
 
 @jax.jit
@@ -517,20 +503,9 @@ def _power_program(probe):
     return jnp.sum((probe * jnp.conj(probe)).real, axis=(-2, -1)).reshape(-1)
 
 
-_power_pair = _pair_jit(
-    lambda probe: jnp.sum(
-        (probe * jnp.conj(probe)).real, axis=(-2, -1)
-    ).reshape(-1)
-)
-
-
 def power(probe):
     """Return the power of each probe mode (`probe.py:773-781`)."""
-    if isinstance(probe, np.ndarray):
-        from tike_tpu.utils.pairs import upload
-
-        return to_host(_power_pair(upload(probe)))
-    return to_host(_power_program(jnp.asarray(probe)))
+    return np.asarray(_power_program(jnp.asarray(probe)))
 
 
 def gaussian(size, rin=0.8, rout=1.0):

@@ -1,7 +1,7 @@
 """Object and probe preconditioners.
 
-TPU-native equivalent of
-`/root/reference/src/tike/ptycho/solvers/_preconditioner.py`:
+JAX equivalent of
+`upstream/src/tike/ptycho/solvers/_preconditioner.py`:
 - psi preconditioner = sum over positions of |probe|^2 scatter-added into the
   object frame, per slice (`_preconditioner.py:48-104`);
 - probe preconditioner = sum over positions of |patches|^2, per slice
@@ -18,10 +18,10 @@ import os as _os
 import jax
 import jax.numpy as jnp
 
+from tike_tpu import precision
 from tike_tpu.ops.patch import patch_adj, patch_fwd
 from tike_tpu.ops.propagation import fresnel_fwd
 from tike_tpu.ops.ptycho import PtychoConfig
-from tike_tpu.utils.pairs import pair_jit
 from .options import PtychoParameters
 
 _jit_add = jax.jit(lambda a, b: jax.tree_util.tree_map(jnp.add, a, b))
@@ -37,8 +37,7 @@ def _psi_precond_math(cfg: PtychoConfig, psi, scan, probe, mask=None):
     w = jnp.ones(n, probe.real.dtype) if mask is None else mask
 
     # Real-valued throughout: |probe|^2 is real, so the patch scatter runs
-    # on ONE float channel instead of a complex pair (2x less MXU work),
-    # and the result needs no pair conversion at program boundaries.
+    # on ONE float channel instead of a complex pair (half the matmul work).
     probe_amp = jnp.sum(
         (probe[0, 0] * jnp.conj(probe[0, 0])).real, axis=0
     )  # (P, P) f32
@@ -47,7 +46,7 @@ def _psi_precond_math(cfg: PtychoConfig, psi, scan, probe, mask=None):
             probe_amp[None] * w[:, None, None].astype(probe_amp.dtype),
             scan,
             (cfg.nz, cfg.n),
-            precision=jax.lax.Precision.HIGH,
+            precision=precision.SOLVER_MATMUL,
         )
     ]
 
@@ -56,7 +55,7 @@ def _psi_precond_math(cfg: PtychoConfig, psi, scan, probe, mask=None):
         probe1 = jnp.broadcast_to(probe[0, 0], (n, probe.shape[-3], p, p))
         for i in range(1, cfg.nslices):
             patches = patch_fwd(
-                psi[i - 1], scan, p, precision=jax.lax.Precision.HIGH
+                psi[i - 1], scan, p, precision=precision.SOLVER_MATMUL
             )
             probe1 = fresnel_fwd(patches[:, None] * probe1, prop)
             amp = jnp.sum(
@@ -67,7 +66,7 @@ def _psi_precond_math(cfg: PtychoConfig, psi, scan, probe, mask=None):
                     amp * w[:, None, None].astype(amp.dtype),
                     scan,
                     (cfg.nz, cfg.n),
-                    precision=jax.lax.Precision.HIGH,
+                    precision=precision.SOLVER_MATMUL,
                 )
             )
 
@@ -85,7 +84,7 @@ def _probe_precond_math(cfg: PtychoConfig, psi, scan, mask=None):
     for i in range(cfg.nslices):
         patches = patch_fwd(
             psi[i], scan, cfg.probe_shape,
-            precision=jax.lax.Precision.HIGH,
+            precision=precision.SOLVER_MATMUL,
         )
         slices.append(
             jnp.sum(
@@ -113,10 +112,8 @@ def _probe_precond_math(cfg: PtychoConfig, psi, scan, mask=None):
 
 # TIKE_FFT_PRECOND selects the single-slice epoch programs' preconditioner
 # formulation (exact either way; see tests/ptycho/test_precond_fft.py).
-# Default ON since round 5: measured on-chip at the headline config
-# (10k x 128², profile/onchip/headline_ablation*.log) the FFT formulation
-# is 10.4% faster end-to-end (222.0 -> 201.1 ms/epoch). Set
-# TIKE_FFT_PRECOND=0 to restore the per-batch patch-gather formulation.
+# Default on, gated per shape by fft_precond_profitable; set
+# TIKE_FFT_PRECOND=0 to force the per-batch patch-gather formulation.
 USE_FFT_PRECOND = _os.environ.get("TIKE_FFT_PRECOND", "1") == "1"
 
 
@@ -125,14 +122,13 @@ def fft_precond_profitable(
 ) -> bool:
     """Whether the FFT formulation beats the per-position gather here.
 
-    Cost model from the round-5 on-chip measurements: the gather
-    formulation touches one aligned (th x tw) tile per position; the FFT
-    formulation pays a handful of full-object FFTs (~ s1*s2*log2 work)
-    regardless of position count. The crossover constant 3.0 classifies
-    both measured points correctly with margin — headline (10k x 128²
-    from 1500², ratio 5.4x: FFT measured +10.4%) vs siemens (516 x 128²
-    from 501², ratio 2.4x: FFT measured -6%); the true crossover lies
-    between them.
+    Cost model: the gather formulation touches one aligned (th x tw) tile
+    per position; the FFT formulation pays a handful of full-object FFTs
+    (~ s1*s2*log2 work) regardless of position count. The crossover
+    constant 3.0 was fitted on another accelerator, between the 10k x 128²
+    headline scan of a 1500² object (ratio 5.4, FFT faster) and the
+    516 x 128² siemens-star scan (ratio 2.4, gather faster); it is to be
+    re-fitted on the H100.
     """
     from tike_tpu.ops.patch import _tile_dims
 
@@ -238,13 +234,13 @@ def _probe_precond_fft_math(cfg: PtychoConfig, psi, scan, w):
     return out[None].astype(jnp.float32)
 
 
-@pair_jit(static_argnames=("cfg",))
+@jax.jit(static_argnames=("cfg",))
 def psi_preconditioner(cfg, psi, scan, probe, mask=None):
     """Jitted wrapper around :func:`_psi_precond_math`."""
     return _psi_precond_math(cfg, psi, scan, probe, mask)
 
 
-@pair_jit(static_argnames=("cfg",))
+@jax.jit(static_argnames=("cfg",))
 def probe_preconditioner(cfg, psi, scan, mask=None):
     """Jitted wrapper around :func:`_probe_precond_math`."""
     return _probe_precond_math(cfg, psi, scan, mask)
@@ -294,7 +290,7 @@ def update_preconditioners(
     return parameters
 
 
-@pair_jit(static_argnames=("cfg", "want_psi", "want_probe", "use_fft"))
+@jax.jit(static_argnames=("cfg", "want_psi", "want_probe", "use_fft"))
 def _preconditioner_epoch_program(
     cfg: PtychoConfig,
     psi,

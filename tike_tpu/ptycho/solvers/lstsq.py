@@ -1,6 +1,6 @@
-"""Least-squares maximum-likelihood (LSQML) solver for TPU.
+"""Least-squares maximum-likelihood (LSQML) solver.
 
-TPU-native equivalent of `/root/reference/src/tike/ptycho/solvers/lstsq.py`
+JAX equivalent of `upstream/src/tike/ptycho/solvers/lstsq.py`
 implementing Odstrcil, Menzel, Guizar-Sicairos 2018 (Optics Express): object
 and probe updated simultaneously with jointly-optimal step sizes from a
 per-position 2x2 least-squares solve, plus eigen-probe (OPR) updates and
@@ -21,14 +21,10 @@ import numpy as np
 
 import tike_tpu.linalg as la
 import tike_tpu.opt
-import tike_tpu.utils.transfer
-from tike_tpu.utils.pairs import Pair, pair_jit
 from tike_tpu.ops.objective import ELEMENTWISE, GRAD
 from tike_tpu.ops.patch import patch_adj, patch_fwd
-from tike_tpu.ops.propagation import (
-    propagation_adj_fast,
-    propagation_fwd_fast,
-)
+from tike_tpu import precision
+from tike_tpu.ops.propagation import propagation_adj, propagation_fwd
 from tike_tpu.ops.ptycho import (
     PtychoConfig,
     _crop_from_detector,
@@ -46,7 +42,7 @@ from .rpie import _masked_mean_each_pattern
 logger = logging.getLogger(__name__)
 
 _jit_add = jax.jit(lambda a, b: jax.tree_util.tree_map(jnp.add, a, b))
-_bmul = pair_jit(lambda b, x: b * x)
+_bmul = jax.jit(lambda b, x: b * x)
 _precondition_object_update_p = None  # set below after definition
 
 
@@ -133,10 +129,10 @@ def _lstsq_batch_math(
 
     # Forward model (single slice).
     patches2d = patch_fwd(
-        psi[0], scan_b, cfg.probe_shape, precision=jax.lax.Precision.HIGH
+        psi[0], scan_b, cfg.probe_shape, precision=precision.SOLVER_MATMUL
     )  # (B, P, P)
     nearplane = patches2d[:, None, None] * unique_probe  # (B,1,M,P,P)
-    farplane = propagation_fwd_fast(_pad_to_detector(nearplane, cfg))
+    farplane = propagation_fwd(_pad_to_detector(nearplane, cfg))
     intensity = jnp.sum(
         jnp.square(jnp.abs(farplane)), axis=(1, 2)
     )  # (B, DET, DET)
@@ -170,7 +166,7 @@ def _lstsq_batch_math(
     chi_far = jnp.where(
         measured_pixels, update, farplane * (unmeasured_pixels_scaling - 1.0)
     )
-    chi = _crop_from_detector(propagation_adj_fast(chi_far), cfg)  # (B,1,M,P,P)
+    chi = _crop_from_detector(propagation_adj(chi_far), cfg)  # (B,1,M,P,P)
     chi = chi * bmask[:, None, None, None, None]
 
     out = {"costs": costs}
@@ -181,7 +177,7 @@ def _lstsq_batch_math(
         object_upd_sum = patch_adj(
             jnp.sum(object_update_proj[:, 0], axis=1), scan_b,
             (cfg.nz, cfg.n),
-            precision=jax.lax.Precision.HIGH,
+            precision=precision.SOLVER_MATMUL,
         )[None]
         out["object_upd_sum"] = object_upd_sum
     else:
@@ -273,7 +269,7 @@ def _lstsq_batch_math(
         out["object_update_precond"] = object_update_precond
         proj = patch_fwd(
             object_update_precond[0], scan_b, cfg.probe_shape,
-            precision=jax.lax.Precision.HIGH,
+            precision=precision.SOLVER_MATMUL,
         )
         dOP = proj[:, None, None] * unique_probe[..., m : m + 1, :, :]
         A1 = jnp.sum((dOP * dOP.conj()).real + eps, axis=(-2, -1))
@@ -331,7 +327,7 @@ def _lstsq_batch_math(
     return out
 
 
-_lstsq_batch = pair_jit(
+_lstsq_batch = jax.jit(
     static_argnames=(
         "cfg",
         "num_batch",
@@ -471,10 +467,8 @@ def lstsq_grad(
     else:
         order = rng.permutation(num_batch)
 
-    from .rpie import _zeros_like
-
-    object_combined_update = _zeros_like(psi)
-    probe_combined_update = _zeros_like(probe)
+    object_combined_update = jnp.zeros_like(psi)
+    probe_combined_update = jnp.zeros_like(probe)
     pos_num = jnp.zeros_like(scan) if position_options is not None else None
     pos_den = jnp.zeros_like(scan) if position_options is not None else None
     # Device-resident per-batch costs, downloaded once per epoch (see
@@ -552,14 +546,11 @@ def lstsq_grad(
                     out["beta_object"], out["object_update_precond"]
                 )
                 if object_options.use_adaptive_moment:
-                    from .rpie import _moment_fn
-
                     (
                         dpsi,
                         object_options.v,
                         object_options.m,
-                    ) = _moment_fn(
-                        tike_tpu.opt.momentum,
+                    ) = tike_tpu.opt.momentum(
                         dpsi,
                         object_options.v,
                         object_options.m,
@@ -595,27 +586,24 @@ def lstsq_grad(
             bounds=(psi.shape, probe.shape),
         )
 
-    batch_cost = tike_tpu.utils.transfer.to_host(jnp.stack(batch_cost_dev))
+    batch_cost = np.asarray(jnp.stack(batch_cost_dev))
     algorithm_options.costs.append([float(np.mean(batch_cost))])
 
     if recover_psi and algorithm_options.batch_method == "compact":
-        object_update_precond = pair_jit(_precondition_object_update)(
+        object_update_precond = jax.jit(_precondition_object_update)(
             object_combined_update, object_options.preconditioner
         )
-        bobj = tike_tpu.utils.transfer.scalar(
+        bobj = float(
             jnp.mean(jnp.stack([jnp.asarray(b) for b in beta_object]))
         )
         dpsi = object_update_precond * bobj
         psi = psi + dpsi
         if object_options.use_adaptive_moment:
-            from .rpie import _moment_fn
-
             (
                 dpsi,
                 object_options.v,
                 object_options.m,
-            ) = _moment_fn(
-                tike_tpu.opt.momentum_checked,
+            ) = tike_tpu.opt.momentum_checked(
                 dpsi,
                 object_options.v,
                 object_options.m,
@@ -624,7 +612,7 @@ def lstsq_grad(
                 beta=bobj,
                 memory_length=3,
             )
-            psi = psi + pair_jit(
+            psi = psi + jax.jit(
                 lambda w, d: (
                     jnp.abs(w) / (0.1 * jnp.abs(w).max() + jnp.abs(w))
                 )
@@ -632,25 +620,14 @@ def lstsq_grad(
             )(object_options.preconditioner, dpsi)
 
     if recover_probe and probe_options.use_adaptive_moment:
-        from .rpie import _moment_fn
-
-        bprb = tike_tpu.utils.transfer.scalar(
-            jnp.mean(jnp.stack(beta_probe))
-        )
-        dprobe = probe_combined_update
+        bprb = float(jnp.mean(jnp.stack(beta_probe)))
         mode = 0
-        dmode = (
-            Pair(dprobe.data[..., mode, :, :, :])
-            if isinstance(dprobe, Pair)
-            else dprobe[..., mode, :, :]
-        )
         (
             d,
             probe_options.v,
             probe_options.m,
-        ) = _moment_fn(
-            tike_tpu.opt.momentum_checked,
-            dmode,
+        ) = tike_tpu.opt.momentum_checked(
+            probe_combined_update[..., mode, :, :],
             probe_options.v,
             probe_options.m,
             mdecay=probe_options.mdecay,
@@ -658,12 +635,7 @@ def lstsq_grad(
             beta=bprb,
             memory_length=3,
         )
-        if isinstance(probe, Pair):
-            probe = Pair(
-                probe.data.at[..., mode, :, :, :].add(d.data)
-            )
-        else:
-            probe = probe.at[..., mode, :, :].add(d)
+        probe = probe.at[..., mode, :, :].add(d)
 
     parameters.scan = scan
     parameters.psi = psi

@@ -1,7 +1,7 @@
 """Algorithm options and the PtychoParameters state object.
 
-TPU-native equivalent of
-`/root/reference/src/tike/ptycho/solvers/options.py:19-330`. PtychoParameters
+JAX equivalent of
+`upstream/src/tike/ptycho/solvers/options.py:19-330`. PtychoParameters
 is the complete solver checkpoint: probe, psi, scan, eigen probes/weights plus
 all option objects, with split/join/copy/resample lifecycle. Device transfer
 uses jax.device_put instead of cupy; arrays are pytree leaves so a
@@ -20,8 +20,6 @@ import numpy as np
 import numpy.typing as npt
 
 from tike_tpu.precision import cfloating, floating
-from tike_tpu.utils.transfer import to_host
-from tike_tpu.utils.pairs import download as pair_download, upload as pair_upload
 from ..exitwave import ExitWaveOptions
 from ..object import ObjectOptions
 from ..position import PositionOptions, check_allowed_positions
@@ -173,10 +171,10 @@ class PtychoParameters:
         """Return a new PtychoParameters rescaled by ``factor``."""
         interp = _resize_fft if interp is None else interp
         return PtychoParameters(
-            probe=interp(to_host(self.probe), factor).astype(cfloating),
-            psi=_resize_spline(to_host(self.psi), factor).astype(cfloating),
-            scan=to_host(self.scan) * factor,
-            eigen_probe=interp(to_host(self.eigen_probe), factor).astype(
+            probe=interp(np.asarray(self.probe), factor).astype(cfloating),
+            psi=_resize_spline(np.asarray(self.psi), factor).astype(cfloating),
+            scan=np.asarray(self.scan) * factor,
+            eigen_probe=interp(np.asarray(self.eigen_probe), factor).astype(
                 cfloating
             )
             if self.eigen_probe is not None
@@ -201,10 +199,7 @@ class PtychoParameters:
         """Copy arrays to device (optionally with a jax.sharding spec)."""
 
         def put(x, dtype):
-            arr = pair_upload(np.asarray(x).astype(dtype))
-            if sharding is not None:
-                arr = jax.device_put(arr, sharding)
-            return arr
+            return jax.device_put(np.asarray(x, dtype), sharding)
 
         return PtychoParameters(
             probe=put(self.probe, cfloating),
@@ -233,13 +228,15 @@ class PtychoParameters:
 
     def copy_to_host(self) -> "PtychoParameters":
         return PtychoParameters(
-            probe=pair_download(self.probe),
-            psi=pair_download(self.psi),
-            scan=to_host(self.scan),
-            eigen_probe=pair_download(self.eigen_probe)
+            probe=np.asarray(self.probe),
+            psi=np.asarray(self.psi),
+            scan=np.asarray(self.scan),
+            eigen_probe=np.asarray(self.eigen_probe)
             if self.eigen_probe is not None
             else None,
-            eigen_weights=to_host(self.eigen_weights),
+            eigen_weights=np.asarray(self.eigen_weights)
+            if self.eigen_weights is not None
+            else None,
             algorithm_options=self.algorithm_options,
             exitwave_options=self.exitwave_options.copy_to_host()
             if self.exitwave_options is not None
@@ -259,13 +256,13 @@ class PtychoParameters:
     def split(indices, *, x: "PtychoParameters") -> "PtychoParameters":
         """Return a new PtychoParameters with only the data from indices."""
         return PtychoParameters(
-            probe=to_host(x.probe).astype(cfloating),
-            psi=to_host(x.psi).astype(cfloating),
-            scan=to_host(x.scan)[indices].astype(floating),
-            eigen_probe=to_host(x.eigen_probe).astype(cfloating)
+            probe=np.asarray(x.probe).astype(cfloating),
+            psi=np.asarray(x.psi).astype(cfloating),
+            scan=np.asarray(x.scan)[indices].astype(floating),
+            eigen_probe=np.asarray(x.eigen_probe).astype(cfloating)
             if x.eigen_probe is not None
             else None,
-            eigen_weights=to_host(x.eigen_weights)[indices].astype(floating)
+            eigen_weights=np.asarray(x.eigen_weights)[indices].astype(floating)
             if x.eigen_weights is not None
             else None,
             algorithm_options=copy.deepcopy(x.algorithm_options),
@@ -298,16 +295,16 @@ class PtychoParameters:
             return joined
 
         return PtychoParameters(
-            probe=to_host(x[0].probe),
-            psi=join_psi([to_host(e.psi) for e in x]),
-            scan=np.concatenate([to_host(e.scan) for e in x], axis=0)[
+            probe=np.asarray(x[0].probe),
+            psi=join_psi([np.asarray(e.psi) for e in x]),
+            scan=np.concatenate([np.asarray(e.scan) for e in x], axis=0)[
                 reorder
             ],
-            eigen_probe=to_host(x[0].eigen_probe)
+            eigen_probe=np.asarray(x[0].eigen_probe)
             if x[0].eigen_probe is not None
             else None,
             eigen_weights=np.concatenate(
-                [to_host(e.eigen_weights) for e in x], axis=0
+                [np.asarray(e.eigen_weights) for e in x], axis=0
             )[reorder]
             if x[0].eigen_weights is not None
             else None,

@@ -1,6 +1,6 @@
 """Random number helpers for complex data types.
 
-Equivalent of `/root/reference/src/tike/random.py`. A module-level seeded
+Equivalent of `upstream/src/tike/random.py`. A module-level seeded
 generator provides reproducible host-side randomness (batch permutations,
 RANSAC subsets); jax PRNG keys are used inside jitted code.
 """
@@ -23,7 +23,7 @@ def numpy_complex(*shape, rng=None):
 def jax_complex(key, *shape):
     """Return a complex random device array in the range [-0.5, 0.5).
 
-    TPU-native equivalent of the reference's ``cupy_complex``
+    JAX equivalent of the reference's ``cupy_complex``
     (`random.py:22-26`): on-device complex uniforms, but driven by an
     explicit jax PRNG key so it is reproducible under jit/vmap.
     """

@@ -1,6 +1,6 @@
 """Scanning trajectory generators (positions as functions of time).
 
-Equivalent of `/root/reference/src/tike/scan.py:59-410`: periodic 1D basis
+Equivalent of `upstream/src/tike/scan.py:59-410`: periodic 1D basis
 functions (sinusoid, triangle, sawtooth, square, staircase) composed into 2D
 scan patterns (lissajous, raster, spiral, diagonal, billiard, hexagonal).
 All host-side numpy; trajectories are inputs to the solvers, not hot code.

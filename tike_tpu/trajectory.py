@@ -1,6 +1,6 @@
 """Discretized trajectories and coded-exposure intersection.
 
-Equivalent of `/root/reference/src/tike/trajectory.py`: adaptive sampling of a
+Equivalent of `upstream/src/tike/trajectory.py`: adaptive sampling of a
 continuous trajectory to satisfy spatial/temporal step constraints, plus
 binning of measurements into coded-exposure windows. Host-side numpy.
 """

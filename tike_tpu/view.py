@@ -1,6 +1,6 @@
 """Visualization helpers for solver outputs (matplotlib, host-side).
 
-Equivalent of `/root/reference/src/tike/view.py`: complex-to-RGB rendering,
+Equivalent of `upstream/src/tike/view.py`: complex-to-RGB rendering,
 probe power, position error/convergence, cost convergence, eigen weights,
 scan trajectory and coverage plots. Matplotlib is imported lazily so headless
 compute jobs don't pay for it.
@@ -127,7 +127,7 @@ def _confidence_ellipse(x, y, ax, n_std=3.0, **kwargs):
     """Draw the n-sigma covariance confidence ellipse of (x, y) onto ax.
 
     Equivalent of the reference's `_confidence_ellipse`
-    (`/root/reference/src/tike/view.py:219-277`), derived directly from the
+    (`upstream/src/tike/view.py:219-277`), derived directly from the
     eigendecomposition of the 2x2 covariance instead of the Pearson/45°
     construction: the ellipse's semi-axes are n_std * sqrt(eigenvalue) along
     the eigenvectors. Returns the patch, or None for a degenerate cloud.
@@ -163,7 +163,7 @@ def plot_positions(true, *args):
 
     Each estimate's cloud gets a 3-sigma covariance confidence ellipse
     overlay, matching the reference's position plots
-    (`/root/reference/src/tike/view.py:219-277,342-360`).
+    (`upstream/src/tike/view.py:219-277,342-360`).
     """
     import matplotlib.pyplot as plt
 
